@@ -1,0 +1,211 @@
+"""BMAT — Balanced Model Adjustment Tree (port of ``repro/core/bmat.py``,
+Section 3.3).
+
+The delta buffer for updates that cannot be accommodated in place. It
+answers the batched bias query ``rank(k)`` (number of buffered entries with
+key < k, the r(k) of Definition 1) over one packed sorted array, in one of
+two traversals:
+
+  * RBMAT — binary descent with the complete-tree BFS index schedule:
+    log2(cap) dependent gathers, no auxiliary arrays;
+  * B+MAT — two-level fence tree: a bisect over the fence array (every
+    ``fanout``-th key), then one bounded in-node bisect.
+
+With ``locate="fused"`` both kinds rank through the K2 kernel
+(``repro_torch/kernels/bmat_rank.py``), which walks the fences.
+Inserts are vectorized sorted merges of a batch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.shapes import pow2_at_least
+from repro_torch.core.types import BMATState, KEY_MAX, TOMBSTONE
+
+RBMAT = "rbmat"
+BPMAT = "b+mat"
+_MIN_CAP = 4096
+
+
+def bmat_height(size: int, tree_type: str, fanout: int) -> int:
+    """Dependent-gather count of one rank query (performance measure S1)."""
+    n = max(size, 2)
+    if tree_type == RBMAT:
+        return int(np.ceil(np.log2(n)))
+    return int(np.ceil(np.log2(max(n // fanout, 2)))) + int(
+        np.ceil(np.log2(fanout))
+    )
+
+
+def _make_fences(keys: torch.Tensor, fanout: int) -> torch.Tensor:
+    tail = torch.full((1,), KEY_MAX, dtype=keys.dtype, device=keys.device)
+    return torch.cat([keys[::fanout], tail])
+
+
+# --------------------------------------------------------------------------
+# batched rank (searchsorted-left semantics over the live prefix)
+# --------------------------------------------------------------------------
+
+
+def _rank_rbmat(keys: torch.Tensor, queries: torch.Tensor, levels: int):
+    """Binary-tree descent over the sorted array using the complete-tree BFS
+    schedule: at level l, node t inspects sorted index (2t+1)*2^(h-1-l) - 1.
+    After h levels, t == searchsorted_left(keys, q)."""
+    cap = keys.shape[0]
+    t = torch.zeros_like(queries)
+    for lvl in range(levels):
+        stride = 1 << (levels - 1 - lvl)
+        s = torch.clamp((2 * t + 1) * stride - 1, max=cap - 1)
+        t = 2 * t + (keys[s] < queries).to(t.dtype)
+    return torch.clamp(t, max=cap).to(torch.int32)
+
+
+def _rank_bpmat(
+    keys: torch.Tensor,
+    fences: torch.Tensor,
+    queries: torch.Tensor,
+    fanout: int,
+    fence_iters: int,
+    node_iters: int,
+):
+    """Fence search (first fence >= q) then bounded in-node search."""
+    nf = fences.shape[0]
+    lo = torch.zeros_like(queries)
+    hi = torch.full_like(queries, nf - 1)
+    for _ in range(fence_iters):
+        mid = (lo + hi) >> 1
+        go = fences[torch.clamp(mid, max=nf - 1)] < queries
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    # fence index f: first fence >= q -> the answer lies in node (f-1, f]
+    cap = keys.shape[0]
+    nlo = torch.clamp(lo - 1, min=0) * fanout
+    nhi = torch.clamp(nlo + fanout, max=cap)
+    for _ in range(node_iters):
+        mid = (nlo + nhi) >> 1
+        go = keys[torch.clamp(mid, max=cap - 1)] < queries
+        nlo, nhi = torch.where(go, mid + 1, nlo), torch.where(go, nhi, mid)
+    return torch.clamp(nlo, max=cap).to(torch.int32)
+
+
+def _merge(
+    keys: torch.Tensor,
+    vals: torch.Tensor,
+    size: torch.Tensor,
+    new_keys: torch.Tensor,
+    new_vals: torch.Tensor,
+    n_new: torch.Tensor,
+):
+    """Merge a sorted-unique batch (padded with KEY_MAX) into the packed
+    arrays. Duplicate keys must have been routed to value updates upstream.
+    Returns fresh (keys, vals, size) with the same capacity.
+
+    Gather formulation: only the batch positions are scattered — into a
+    marker and a row map, each with one spare slot that takes the rows
+    outside the batch — then every output slot pulls its element with a
+    cumsum and two gathers.
+    """
+    cap = keys.shape[0]
+    q = new_keys.shape[0]
+    dev = keys.device
+    ar_q = torch.arange(q, dtype=torch.int64, device=dev)
+    # merged position of each new entry (strictly increasing for valid rows)
+    new_pos = ar_q + torch.searchsorted(keys, new_keys, right=True)
+    valid_new = (ar_q < n_new) & (new_pos < cap)
+    tgt = torch.where(valid_new, new_pos, cap)
+    mark = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    mark[tgt] = 1
+    new_at = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    new_at[tgt] = ar_q.to(torch.int32)
+    mark, new_at = mark[:cap], new_at[:cap]
+    nb = torch.cumsum(mark, 0)  # new entries at merged positions <= i
+    i = torch.arange(cap, dtype=torch.int64, device=dev)
+    is_new = new_at >= 0
+    old_idx = torch.clamp(i - nb, 0, cap - 1)
+    from_old = ~is_new & ((i - nb) < size)
+    src = torch.clamp(new_at, 0, q - 1).to(torch.int64)
+    out_keys = torch.where(
+        is_new, new_keys[src], torch.where(from_old, keys[old_idx], KEY_MAX)
+    )
+    out_vals = torch.where(
+        is_new, new_vals[src], torch.where(from_old, vals[old_idx], 0)
+    )
+    return out_keys, out_vals, size + n_new.to(size.dtype)
+
+
+class BMAT:
+    """Host wrapper holding the array state + static tuning knobs."""
+
+    def __init__(
+        self,
+        tree_type: str = BPMAT,
+        fanout: int = 16,
+        capacity: int = _MIN_CAP,
+        *,
+        device,
+    ):
+        if tree_type not in (RBMAT, BPMAT):
+            raise ValueError(f"unknown BMAT type {tree_type!r}")
+        if fanout < 2 or fanout & (fanout - 1):
+            raise ValueError("fanout must be a power of two >= 2")
+        self.tree_type = tree_type
+        self.fanout = fanout
+        capacity = max(pow2_at_least(capacity), _MIN_CAP)
+        keys = torch.full((capacity,), KEY_MAX, dtype=torch.int64,
+                          device=device)
+        self.state = BMATState(
+            keys=keys,
+            vals=torch.zeros(capacity, dtype=torch.int64, device=device),
+            fences=_make_fences(keys, fanout),
+            size=torch.tensor(0, dtype=torch.int32, device=device),
+        )
+
+    # -- introspection -----------------------------------------------------
+    @property
+    def capacity(self) -> int:
+        return int(self.state.keys.shape[0])
+
+    @property
+    def size(self) -> int:
+        return int(self.state.size)
+
+    @property
+    def live_size(self) -> int:
+        """Entries excluding tombstones (exact; O(size) reduce)."""
+        n = self.size
+        if n == 0:
+            return 0
+        return int((self.state.vals[:n] != TOMBSTONE).sum())
+
+    @property
+    def height(self) -> int:
+        """Dependent-gather count of one rank query (performance measure S1)."""
+        return bmat_height(self.size, self.tree_type, self.fanout)
+
+    def memory_bytes(self) -> int:
+        """Bytes of the device arrays."""
+        return sum(a.numel() * a.element_size() for a in self.state)
+
+    def extract(self):
+        """Live (keys, vals) as numpy."""
+        n = self.size
+        keys = self.state.keys[:n].cpu().numpy()
+        vals = self.state.vals[:n].cpu().numpy()
+        live = vals != TOMBSTONE
+        return keys[live], vals[live]
+
+    # -- internals -----------------------------------------------------------
+    def _grow(self, need: int) -> None:
+        new_cap = max(pow2_at_least(4 * need + 2), _MIN_CAP)
+        dev = self.state.keys.device
+        n = self.size
+        keys = torch.full((new_cap,), KEY_MAX, dtype=torch.int64, device=dev)
+        vals = torch.zeros(new_cap, dtype=torch.int64, device=dev)
+        keys[:n] = self.state.keys[:n]
+        vals[:n] = self.state.vals[:n]
+        self.state = BMATState(
+            keys=keys,
+            vals=vals,
+            fences=_make_fences(keys, self.fanout),
+            size=self.state.size,
+        )

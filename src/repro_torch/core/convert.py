@@ -1,0 +1,74 @@
+"""Build the port's index from numpy copies of another index's arrays.
+
+The arrays arrive as numpy (for example ``np.asarray`` of each leaf of an
+index built elsewhere), in the field order of the port's NamedTuples, so
+this module needs nothing but torch and numpy.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.state import Counters, UpLIFState
+from repro_torch.core.types import (
+    BMATState,
+    GMMState,
+    RadixSplineModel,
+    RSStatic,
+    SlotsState,
+)
+from repro_torch.core.uplif import UpLIF, UpLIFConfig
+
+
+def _tensors(kind, arrays: Sequence[np.ndarray], device):
+    if len(arrays) != len(kind._fields):
+        raise ValueError(
+            f"{kind.__name__} takes {len(kind._fields)} arrays "
+            f"({', '.join(kind._fields)}), got {len(arrays)}"
+        )
+    return kind(*(torch.tensor(np.asarray(a), device=device) for a in arrays))
+
+
+def state_from_numpy(
+    slots: Sequence[np.ndarray],
+    model: Sequence[np.ndarray],
+    bmat: Sequence[np.ndarray],
+    counters: Sequence[np.ndarray],
+    *,
+    device,
+) -> UpLIFState:
+    """``UpLIFState`` on ``device`` from the leaves of SlotsState (keys, vals,
+    occ), RadixSplineModel (table, spline_keys, spline_pos, shift),
+    BMATState (keys, vals, fences, size) and Counters (n_keys, n_bmat_live,
+    n_inplace, n_overflow, min_granularity). Dtypes are kept as given."""
+    return UpLIFState(
+        slots=_tensors(SlotsState, slots, device),
+        model=_tensors(RadixSplineModel, model, device),
+        bmat=_tensors(BMATState, bmat, device),
+        counters=_tensors(Counters, counters, device),
+    )
+
+
+def uplif_from_numpy(
+    slots, model, bmat, counters, *,
+    rs_static: Sequence[int],
+    gmm: Sequence[np.ndarray],
+    alpha: float,
+    config: UpLIFConfig,
+    device,
+) -> UpLIF:
+    """An ``UpLIF`` host shell around ``state_from_numpy(...)``; ``rs_static``
+    is (radix_bits, max_error, n_search_iters, n_spline) and ``gmm`` the
+    (weights, means, stds) arrays. The BMAT kind and fanout come from
+    ``config``."""
+    state = state_from_numpy(slots, model, bmat, counters, device=device)
+    return UpLIF.from_state(
+        state,
+        rs_static=RSStatic(*(int(x) for x in rs_static)),
+        gmm=_tensors(GMMState, gmm, "cpu"),
+        alpha=float(alpha),
+        config=config,
+        device=device,
+    )

@@ -9,6 +9,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
