@@ -18,23 +18,30 @@ Imports only the port (``src/repro_torch``) and runs:
                 its busiest operations;
   4. kernels  — each kernel against its plain torch version on the card, on
                 the main path's final state and on an fb index (radix shift
-                36), with hits, misses and above-domain keys;
-  5. whole path — a short op tape through the port on the card and on the
-                CPU: visible results and live contents must be identical;
-  6. timing   — at the main path's 4096-query batch, warmed up: each
-                kernel's device time per launch (``ms``, from the profiler's
-                device events), its time per call between CUDA events
-                (``call_ms``, host dispatch included), its plain version's
-                and a one-call PyTorch yardstick's device time, and the
-                memory-bound floor, printed as one JSON line.
+                36), with hits, misses and above-domain keys; K1 also in its
+                float64-interpolation mode;
+  5. large index — all 8M wikits keys, a capacity above the float32
+                position bound: lookups and an insert wave go through K1's
+                float64 mode, which must equal the spline path;
+  6. whole path — a short op tape through the port on the card and on the
+                CPU: visible results, insert overflow counts, live contents
+                and the slot and BMAT arrays must be identical;
+  7. timing   — on a main-path batch (one mixed wave's 2048 reads and 2048
+                insert keys), warmed up: each kernel's device time per
+                launch (``ms``, from the profiler's device events), the time
+                per call of the ``ops`` adapter the index calls, between
+                CUDA events (``call_ms``, host dispatch included), its plain
+                version's and a one-call PyTorch yardstick's device time,
+                and the bound, printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before it, as does a machine without CUDA.
 
 Bound (``bound_ms``): the larger of bytes over the H100's 3.35 TB/s and
-float32 operations over 67 TFLOP/s. Bytes count, per query, its own inputs
-and outputs plus every element its fixed-depth search probes (8 B per key,
-4 B per table entry or float32 position), once per query.
+float32 operations over 67 TFLOP/s. Bytes count each element the batch
+needs once: the queries and outputs, plus the distinct table, knot,
+position, slot, fence and node elements that the plain version reads on
+this batch (recorded while it runs), at their stored widths.
 """
 from __future__ import annotations
 
@@ -209,19 +216,19 @@ def _phase_report(torch, index, name, lat, n_ops, before, after, reads):
 
 
 def kernel_inputs(torch, index, queries):
-    """K1 and K2 inputs as the main path gives them, for one query batch."""
+    """K1 and K2 inputs as the main path gives them, for one query batch
+    (a single index, so no shard ids)."""
     st = index.fstatic()
     m, b = index.rs_model, index.bmat.state
     q = torch.as_tensor(queries, device=index.device)
-    sid = torch.zeros_like(q)
     k1 = dict(
-        args=(m.table, m.spline_keys, m.spline_pos.to(torch.float32),
-              m.shift.reshape(1).to(torch.int32), index.slots.keys, q, sid),
+        args=(m.table, m.spline_keys, m.spline_pos, m.shift.reshape(1),
+              index.slots.keys, q),
         kw=dict(n_table=m.table.shape[0], n_knots=m.spline_keys.shape[0],
                 cap=index.capacity, window=st.window, rs_iters=st.rs_iters),
     )
     k2 = dict(
-        args=(b.keys, b.fences, q, sid),
+        args=(b.keys, b.fences, q),
         kw=dict(cap=b.keys.shape[0], nf=b.fences.shape[0], fanout=st.fanout),
     )
     return k1, k2
@@ -241,32 +248,64 @@ def query_mix(rng, keys, n=BATCH):
 
 
 def compare_kernels(torch, index, queries, label):
-    """Each kernel against its plain version on the card; returns
-    (k1 max abs err, k2 max abs err)."""
+    """Each kernel against its plain version on the card (K1 in both of its
+    interpolation modes); returns (k1 max abs err, k2 max abs err)."""
     from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
     from repro_torch.kernels.spline_lookup import (
         fused_locate, fused_locate_plain,
     )
 
     k1, k2 = kernel_inputs(torch, index, queries)
-    j, start = fused_locate(*k1["args"], **k1["kw"])
-    j0, start0 = fused_locate_plain(*k1["args"], **k1["kw"])
+    W = index.cfg.window
+    err1 = 0
+    for interp64 in (False, True):
+        kw = dict(k1["kw"], interp64=interp64)
+        j, start = fused_locate(*k1["args"], **kw)
+        j0, start0 = fused_locate_plain(*k1["args"], **kw)
+        torch.cuda.synchronize()
+        mode = "float64" if interp64 else "float32"
+        print(f"kernels[{label}]: K1 {mode} j differ {int((j != j0).sum())}, "
+              f"start rows differ {int((start != start0).sum())} "
+              f"(expected 0)", flush=True)
+        require(torch.equal(j, j0),
+                f"{label}: K1 ({mode}) j differs from its plain version")
+        require(int((start - start0).abs().max()) <= W,
+                f"{label}: K1 ({mode}) start differs by more than one row")
+        err1 = max(err1, int((j - j0).abs().max()),
+                   int((start - start0).abs().max()))
     r = bmat_rank(*k2["args"], **k2["kw"])
     r0 = bmat_rank_plain(*k2["args"], **k2["kw"])
     torch.cuda.synchronize()
-    W = index.cfg.window
-    rows_differ = int((start != start0).sum())
-    err1 = int(max((j - j0).abs().max(), (start - start0).abs().max()))
-    err2 = int((r - r0).abs().max())
-    print(f"kernels[{label}]: K1 j differ {int((j != j0).sum())}, start rows "
-          f"differ {rows_differ} (expected 0); K2 ranks differ "
-          f"{int((r != r0).sum())}; bmat_size {index.bmat.size}, shift "
+    print(f"kernels[{label}]: K2 ranks differ {int((r != r0).sum())}; "
+          f"bmat_size {index.bmat.size}, capacity {index.capacity}, shift "
           f"{int(index.rs_model.shift)}", flush=True)
-    require(torch.equal(j, j0), f"{label}: K1 j differs from its plain version")
-    require(int((start - start0).abs().max()) <= W,
-            f"{label}: K1 start differs by more than one row")
     require(torch.equal(r, r0), f"{label}: K2 differs from its plain version")
-    return err1, err2
+    return err1, int((r - r0).abs().max())
+
+
+def read_footprint(torch, plain, args, kw, arrays) -> int:
+    """Bytes of the distinct elements of ``arrays`` (name -> tensor passed
+    in ``args``) that one call of the plain version reads, recorded from
+    its indexing while it runs."""
+    from torch.overrides import TorchFunctionMode
+
+    seen = {name: [] for name in arrays}
+
+    class Reads(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__ and isinstance(
+                    args[1], torch.Tensor):
+                for name, a in arrays.items():
+                    if args[0] is a:
+                        seen[name].append(args[1].reshape(-1))
+            return func(*args, **(kwargs or {}))
+
+    with Reads():
+        plain(*args, **kw)
+    return sum(
+        int(torch.unique(torch.cat(idx)).numel()) * arrays[name].element_size()
+        for name, idx in seen.items() if idx
+    )
 
 
 def device_ms(torch, fn, iters: int) -> float:
@@ -313,51 +352,109 @@ def bound_ms(n_bytes: float, n_f32_ops: float):
 
 
 def kernel_timing(torch, index, queries):
+    from repro_torch.kernels import ops
     from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
     from repro_torch.kernels.spline_lookup import (
-        fused_locate, fused_locate_plain, span_length,
+        fused_locate, fused_locate_plain,
     )
 
     k1, k2 = kernel_inputs(torch, index, queries)
     q = k1["args"][5]
-    st = index.fstatic()
     n = q.shape[0]
-    L = span_length(st.window, index.capacity)
-    n_bisect = max(1, int(np.ceil(np.log2(L))))
-    nf = k2["kw"]["nf"]
-    fence_iters = int(np.ceil(np.log2(nf + 1)))
-    node_iters = int(np.ceil(np.log2(st.fanout + 1)))
-    # per query: query + sid in, (j, start) out, 2 table entries, rs_iters
-    # knots, 2 positions, n_bisect + 1 slots
-    k1_bytes = n * (16 + 16 + 8 + 8 * st.rs_iters + 8 + 8 * (n_bisect + 1))
-    k1_ops = n * 12  # conversions, subs, mul, add, div, clamps, fma, round
-    # per query: query + sid in, rank out, the fence and node probes
-    k2_bytes = n * (16 + 8 + 8 * (fence_iters + node_iters))
-    slot_keys, bkeys = index.slots.keys, index.bmat.state.keys
+    m, b = index.rs_model, index.bmat.state
+    slot_keys = index.slots.keys
+    # queries in, (j, start) out, the shift, and the distinct probes
+    k1_bytes = n * (8 + 16) + m.shift.element_size() + read_footprint(
+        torch, fused_locate_plain, k1["args"], k1["kw"],
+        dict(table=m.table, spline_keys=m.spline_keys,
+             spline_pos=m.spline_pos, slot_keys=slot_keys),
+    )
+    k1_ops = n * 12  # conversions, subs, mul, div, clamps, fma, round
+    # queries in, rank out, and the distinct fence and node probes
+    k2_bytes = n * (8 + 8) + read_footprint(
+        torch, bmat_rank_plain, k2["args"], k2["kw"],
+        dict(keys=b.keys, fences=b.fences),
+    )
     calls = {
         "fused_locate": (
             lambda: fused_locate(*k1["args"], **k1["kw"]),
+            lambda: ops.fused_locate(*k1["args"], **k1["kw"]),
             lambda: fused_locate_plain(*k1["args"], **k1["kw"]),
             lambda: torch.searchsorted(slot_keys, q, right=True),
-            bound_ms(k1_bytes, k1_ops),
+            k1_bytes, bound_ms(k1_bytes, k1_ops),
         ),
         "bmat_rank": (
             lambda: bmat_rank(*k2["args"], **k2["kw"]),
+            lambda: ops.bmat_rank_fused(*k2["args"], **k2["kw"]),
             lambda: bmat_rank_plain(*k2["args"], **k2["kw"]),
-            lambda: torch.searchsorted(bkeys, q),
-            bound_ms(k2_bytes, 0),
+            lambda: torch.searchsorted(b.keys, q),
+            k2_bytes, bound_ms(k2_bytes, 0),
         ),
     }
     return {
         name: dict(
             ms=device_ms(torch, kern, 200),
-            call_ms=call_ms(torch, kern, 200),
+            call_ms=call_ms(torch, adapter, 200),
             plain_ms=device_ms(torch, plain, 10),
             library_ms=device_ms(torch, lib, 200),
+            bytes=n_bytes,
             bound=bound,
         )
-        for name, (kern, plain, lib, bound) in calls.items()
+        for name, (kern, adapter, plain, lib, n_bytes, bound) in calls.items()
     }
+
+
+# ---------------------------------------------------------------------------
+# an index above the float32 position bound
+# ---------------------------------------------------------------------------
+
+
+def large_index(torch, keys):
+    """All generated keys in one index, whose capacity exceeds the float32
+    position bound: lookups and an insert wave must go through K1 in its
+    float64 mode, and K1 must equal the spline path there."""
+    from repro_torch.core import UpLIF, fops
+    from repro_torch.core.state import LOCATE_SPLINE
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    big = UpLIF(keys, keys + 1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    m = big.rs_model
+    require(big.capacity > ops.MAX_F32_POSITIONS and not ops.locate_fusable(
+        big.capacity, m.spline_keys.shape[0]),
+        "large index: capacity is within the float32 position bound")
+    require(big.locate_strategy() == "fused", "large index: not fused")
+    reads = rng.choice(keys, BATCH)
+    fresh = np.setdiff1d(rng.integers(int(keys[0]), int(keys[-1]), 2 * BATCH),
+                         keys)[:BATCH]
+    ops.reset_launch_counts()
+    found, vals = big.lookup(reads)
+    require(found.all() and np.array_equal(vals, reads + 1),
+            "large index: reads")
+    big.insert(fresh, fresh + 1)
+    found, vals = big.lookup(fresh)
+    require(found.all() and np.array_equal(vals, fresh + 1),
+            "large index: inserted keys")
+    counts = ops.launch_counts()
+    require(all(v > 0 for v in counts.values()),
+            f"large index: a kernel was not launched: {counts}")
+    st = big.fstatic()
+    q = torch.as_tensor(query_mix(rng, keys), device=big.device)
+    jf, cf = fops._locate(st, big.slots.keys, m, q)
+    js, cs = fops._locate(st._replace(locate=LOCATE_SPLINE), big.slots.keys,
+                          m, q)
+    require(torch.equal(jf, js) and torch.equal(cf, cs),
+            "large index: K1 (float64) differs from the spline path")
+    print(f"large index: {len(keys)} keys loaded in {load_s:.1f} s, capacity "
+          f"{big.capacity}, shift {int(m.shift)}; reads and inserts found; "
+          f"launches {counts}; K1 float64 == spline path on "
+          f"{q.shape[0]} queries", flush=True)
+    err = compare_kernels(torch, big, query_mix(rng, keys), "wikits-8M")
+    del big
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +494,7 @@ def card_vs_cpu(torch):
         out = []
         for op in ops_tape:
             if op[0] == "insert":
-                idx.insert(op[1], op[2])
+                out.append(np.asarray(idx.insert(op[1], op[2])))
             else:
                 out.append(idx.delete(op[1]))
             out.extend(idx.lookup(probes))
@@ -407,10 +504,10 @@ def card_vs_cpu(torch):
         results[dev] = (out, arrays)
     for a, b in zip(results["cuda"][0], results["cpu"][0]):
         require(np.array_equal(a, b), "card and CPU differ on the op tape")
-    same = all(np.array_equal(a, b)
-               for a, b in zip(results["cuda"][1], results["cpu"][1]))
-    print(f"whole path: card == CPU on {len(ops_tape)} ops "
-          f"(slot and BMAT arrays identical: {same})", flush=True)
+    for a, b in zip(results["cuda"][1], results["cpu"][1]):
+        require(np.array_equal(a, b), "card and CPU slot or BMAT arrays differ")
+    print(f"whole path: card == CPU on {len(ops_tape)} ops (results, overflow "
+          f"counts, live contents, slot and BMAT arrays)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -451,8 +548,8 @@ def main() -> int:
           f"locate {index.locate_strategy()}", flush=True)
     require(index.locate_strategy() == "fused", "auto did not resolve to fused")
     m = index.rs_model
-    require(ops.locate_fusable(index.capacity, m.spline_keys.shape[0],
-                               m.table.shape[0], 1), "locate is not fusable")
+    require(ops.locate_fusable(index.capacity, m.spline_keys.shape[0]),
+            "the main path's index is above the float32 position bound")
 
     phases, launches = run_main_path(torch, index, runner, WAVES, DELETE_WAVES)
     print(f"main path launches: {launches}", flush=True)
@@ -471,10 +568,14 @@ def main() -> int:
     errs.append(compare_kernels(torch, fb, query_mix(rng, fb_runner.init_keys),
                                 "fb"))
     del fb
+    errs.append(large_index(torch, keys))
 
     card_vs_cpu(torch)
 
-    timing = kernel_timing(torch, index, query_mix(rng, runner.init_keys))
+    # a main-path batch: one mixed wave's reads and insert keys
+    batch = np.concatenate(runner.next_batch(0.5))
+    errs.append(compare_kernels(torch, index, batch, "wikits main-path batch"))
+    timing = kernel_timing(torch, index, batch)
     meta = {
         "fused_locate": (K1_SOURCE, K1_REPLACES, max(e[0] for e in errs)),
         "bmat_rank": (K2_SOURCE, K2_REPLACES, max(e[1] for e in errs)),
@@ -486,7 +587,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": t["ms"], "call_ms": t["call_ms"],
-            "plain_ms": t["plain_ms"],
+            "plain_ms": t["plain_ms"], "bound_bytes": t["bytes"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
         })

@@ -85,15 +85,13 @@ def _locate(static: UpLIFStatic, slot_keys, model, queries):
             lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
         return lo - 1, torch.full_like(queries, cap - 1)
 
-    if static.locate == LOCATE_FUSED and kops.locate_fusable(
-        cap, model.spline_keys.shape[0], model.table.shape[0], 1
-    ):
+    if static.locate == LOCATE_FUSED:
         # K1: radix predict + knot search + interpolation + the same 3-row
-        # bounded search below, in one kernel launch
+        # bounded search below, in one kernel launch at any capacity (above
+        # the f32 position bound it interpolates in float64, as below)
         return kops.fused_locate(
             model.table, model.spline_keys, model.spline_pos,
             model.shift.reshape(1), slot_keys, queries,
-            torch.zeros_like(queries),
             n_table=model.table.shape[0],
             n_knots=model.spline_keys.shape[0],
             cap=cap, window=static.window, rs_iters=static.rs_iters,
@@ -143,7 +141,7 @@ def _bmat_rank(static: UpLIFStatic, bmat: BMATState, queries):
         # K2: Definition 1 bias query r(k). The rank is an exact integer
         # search, so it equals both plain traversals for BOTH BMAT kinds.
         return kops.bmat_rank_fused(
-            bmat.keys, bmat.fences, queries, torch.zeros_like(queries),
+            bmat.keys, bmat.fences, queries,
             cap=cap, nf=nf, fanout=static.fanout,
         )
     if static.bmat_kind == RBMAT:

@@ -21,16 +21,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import key_lt
 
 
-def bmat_rank_plain(keys, fences, queries, sid, *, cap: int, nf: int,
+def bmat_rank_plain(keys, fences, queries, sid=None, *, cap: int, nf: int,
                     fanout: int):
     """Plain torch version of K2. ``keys``/``fences`` are flat over the
-    shard axis ([S*cap], [S*nf]); ``sid`` is the int64 shard id per query.
-    Returns the int64 shard-local rank."""
+    shard axis ([S*cap], [S*nf]); ``sid`` is the int64 shard id per query,
+    or None for a single BMAT. Returns the int64 shard-local rank."""
     fence_iters = int(np.ceil(np.log2(nf + 1)))
     node_iters = int(np.ceil(np.log2(fanout + 1)))
-    sid = sid.to(torch.int64)
-    kbase = sid * cap
-    fbase = sid * nf
+    if sid is None:
+        kbase = fbase = torch.zeros_like(queries)
+    else:
+        sid = sid.to(torch.int64)
+        kbase = sid * cap
+        fbase = sid * nf
     lo, hi = fbase, fbase + (nf - 1)
     for _ in range(fence_iters):
         mid = (lo + hi) >> 1
@@ -46,7 +49,8 @@ def bmat_rank_plain(keys, fences, queries, sid, *, cap: int, nf: int,
     return torch.clamp(nlo - kbase, max=cap)
 
 
-def bmat_rank(keys, fences, queries, sid, *, cap: int, nf: int, fanout: int):
+def bmat_rank(keys, fences, queries, sid=None, *, cap: int, nf: int,
+              fanout: int):
     """K2: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Same contract as ``bmat_rank_plain``."""
     if queries.device.type == "cpu":
@@ -56,6 +60,8 @@ def bmat_rank(keys, fences, queries, sid, *, cap: int, nf: int, fanout: int):
         raise ValueError(f"no BMAT rank kernel for {queries.device}")
     for name, x in (("keys", keys), ("fences", fences),
                     ("queries", queries), ("sid", sid)):
+        if x is None:
+            continue
         if x.device != queries.device or x.dtype != torch.int64:
             raise ValueError(f"{name} must be int64 on {queries.device}")
         if x.dim() != 1 or not x.is_contiguous():
@@ -65,7 +71,8 @@ def bmat_rank(keys, fences, queries, sid, *, cap: int, nf: int, fanout: int):
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = build.library().bmat_rank_launch(
         keys.data_ptr(), fences.data_ptr(), queries.data_ptr(),
-        sid.data_ptr(), out.data_ptr(), n, cap, nf, fanout, stream,
+        None if sid is None else sid.data_ptr(), out.data_ptr(), n, cap, nf,
+        fanout, stream,
     )
     build.check(err, "bmat_rank")
     bmat_rank.launches += 1

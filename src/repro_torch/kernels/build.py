@@ -32,10 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # launcher name -> argtypes (pointers and the stream as void*, ints as int)
 SIGNATURES = {
-    # table, spline_keys, spline_pos32, shift, slot_keys, queries, sid,
-    # j_out, start_out, n, n_table, n_knots, cap, window, rs_iters, stream
-    "fused_locate_launch": [_P] * 9 + [_I] * 6 + [_P],
-    # keys, fences, queries, sid, out, n, cap, nf, fanout, stream
+    # table, spline_keys, spline_pos, shift, slot_keys, queries, sid,
+    # j_out, start_out, n, n_table, n_knots, cap, window, rs_iters,
+    # interp64, stream (a null sid means shard 0 for every query)
+    "fused_locate_launch": [_P] * 9 + [_I] * 7 + [_P],
+    # keys, fences, queries, sid (or null), out, n, cap, nf, fanout, stream
     "bmat_rank_launch": [_P] * 5 + [_I] * 4 + [_P],
 }
 

@@ -7,9 +7,9 @@
 //      fanout-th key plus a trailing KEY_MAX) for the first fence >= q;
 //   2. ceil(log2(fanout + 1)) steps of bisect inside the located node;
 //   3. result min(rank, cap), shard-local.
-// Queries carry a shard id, from which the kernel derives the flat key and
-// fence bases (kbase = sid * cap, fbase = sid * nf), so S stacked BMATs
-// rank in one launch; a single BMAT is the all-zero-ids case. The search is
+// Queries may carry a shard id, from which the kernel derives the flat key
+// and fence bases (kbase = sid * cap, fbase = sid * nf), so S stacked BMATs
+// rank in one launch; a single BMAT passes a null sid (shard 0). The search is
 // exact integer arithmetic on native int64 keys, so it equals the TPU
 // kernel and both plain traversals (RBMAT descent, B+MAT fences) exactly.
 //
@@ -28,13 +28,13 @@ __global__ void __launch_bounds__(256) bmat_rank_kernel(
     const long long* __restrict__ keys,     // [S * cap]
     const long long* __restrict__ fences,   // [S * nf]
     const long long* __restrict__ queries,  // [n]
-    const long long* __restrict__ sid,      // [n]
+    const long long* __restrict__ sid,      // [n], or null: all shard 0
     long long* __restrict__ out,            // [n]
     int n, int cap, int nf, int fanout, int fence_iters, int node_iters) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const long long q = queries[i];
-    const long long s_id = sid[i];
+    const long long s_id = sid ? sid[i] : 0;
     const long long kbase = s_id * (long long)cap;
     const long long fbase = s_id * (long long)nf;
 

@@ -34,11 +34,14 @@ def native_kernels(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def locate_fusable(cap: int, n_knots: int, n_table: int, n_shards: int) -> bool:
-    """Shape guard for the fused locate: the per-shard capacity must stay
-    below the f32 position bound and the model must have at least one real
-    spline segment. (The TPU's VMEM residency budgets do not apply: the
-    CUDA kernel reads its arrays from HBM.)"""
+def locate_fusable(cap: int, n_knots: int) -> bool:
+    """Whether the fused locate computes the TPU kernel's float32
+    interpolation exactly: the per-shard capacity stays within the f32
+    position bound and the model has at least one real spline segment.
+    (The TPU's VMEM residency budgets do not apply: the CUDA kernel reads
+    its arrays from HBM.) Above the bound the JAX package falls back to its
+    float64 spline path, and ``fused_locate`` asks K1 for that path's
+    float64 interpolation instead."""
     return cap <= MAX_F32_POSITIONS and n_knots >= 2
 
 
@@ -48,25 +51,27 @@ def rank_fusable(n_keys: int, n_fences: int) -> bool:
 
 
 def fused_locate(
-    table, spline_keys, spline_pos, shift, slot_keys, queries, sid,
+    table, spline_keys, spline_pos, shift, slot_keys, queries, sid=None,
     *, n_table: int, n_knots: int, cap: int, window: int, rs_iters: int,
 ):
-    """K1 adapter: flat-over-shards arrays, per-shard ``shift`` [S], shard
-    id ``sid`` per query (zeros for a single shard). Returns int64
-    ``(j, icap)`` with the ``fops._locate`` contract."""
+    """K1 adapter: flat-over-shards arrays (float64 ``spline_pos``, read
+    as stored), per-shard int32 ``shift`` [S], shard id ``sid`` per query
+    (None for a single shard). Returns int64 ``(j, icap)`` with the
+    ``fops._locate`` contract. Interpolates in float32 where
+    ``locate_fusable`` holds, else in float64."""
     j, start = _locate.fused_locate(
-        table, spline_keys, spline_pos.to(torch.float32),
-        shift.to(torch.int32), slot_keys, queries, sid,
+        table, spline_keys, spline_pos, shift, slot_keys, queries, sid,
         n_table=n_table, n_knots=n_knots, cap=cap, window=window,
-        rs_iters=rs_iters,
+        rs_iters=rs_iters, interp64=not locate_fusable(cap, n_knots),
     )
     return j, start + (_locate.span_length(window, cap) - 1)
 
 
-def bmat_rank_fused(keys, fences, queries, sid, *, cap: int, nf: int,
+def bmat_rank_fused(keys, fences, queries, sid=None, *, cap: int, nf: int,
                     fanout: int):
     """K2 adapter: shard-local searchsorted-left rank (int64); ``keys`` and
-    ``fences`` flat over the shard axis, ``sid`` per query."""
+    ``fences`` flat over the shard axis, ``sid`` per query (None for a
+    single BMAT)."""
     return _rank.bmat_rank(keys, fences, queries, sid, cap=cap, nf=nf,
                            fanout=fanout)
 

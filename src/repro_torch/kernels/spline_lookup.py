@@ -17,6 +17,11 @@ Arithmetic note: the TPU kernel's reference run (XLA) contracts the lerp
 ``p0 + t * (p1 - p0)`` into a fused multiply-add. The CUDA kernel writes
 the FMA; the plain version forms ``t * (p1 - p0)`` exactly in float64,
 adds ``p0`` there and rounds once to float32, which gives the FMA's result.
+
+Float32 positions are exact only up to 2^24 slots; above that the JAX
+package leaves the TPU kernel for its float64 spline path. With
+``interp64=True`` both versions interpolate as that path does (the port's
+``radix_spline._rs_predict_impl``), so the kernel serves any capacity.
 """
 from __future__ import annotations
 
@@ -44,23 +49,29 @@ def span_length(window: int, cap: int) -> int:
 
 
 def fused_locate_plain(
-    table, spline_keys, spline_pos32, shift, slot_keys, queries, sid,
+    table, spline_keys, spline_pos, shift, slot_keys, queries, sid=None,
     *, n_table: int, n_knots: int, cap: int, window: int, rs_iters: int,
+    interp64: bool = False,
 ):
     """Plain torch version of K1 (same inputs and outputs as the kernel).
 
-    ``table``/``spline_keys``/``spline_pos32``/``slot_keys`` are flat over
-    the shard axis ([S*T], [S*K], [S*K], [S*cap]); ``shift`` is the
-    per-shard int32 [S] radix shift; ``sid`` the int64 shard id per query.
+    ``table``/``spline_keys``/``spline_pos``/``slot_keys`` are flat over
+    the shard axis ([S*T], [S*K], [S*K], [S*cap]); ``spline_pos`` is
+    float64; ``shift`` is the per-shard int32 [S] radix shift; ``sid`` the
+    int64 shard id per query, or None for a single shard.
     ``n_table``/``n_knots``/``cap`` are per-shard sizes. Returns int64
     ``(j, start)``."""
     L = span_length(window, cap)
     n_bisect = max(1, int(np.ceil(np.log2(L))))
-    sid = sid.to(torch.int64)
-    tb = sid * n_table
-    sb = sid * n_knots
-    slb = sid * cap
-    sh = shift.to(torch.int64)[sid]
+    if sid is None:
+        tb = sb = slb = 0
+        sh = shift[:1].to(torch.int64)
+    else:
+        sid = sid.to(torch.int64)
+        tb = sid * n_table
+        sb = sid * n_knots
+        slb = sid * cap
+        sh = shift.to(torch.int64)[sid]
     b = torch.clamp(queries >> sh, 0, n_table - 3)
 
     lo = sb + torch.clamp(table[tb + b].to(torch.int64), min=1) - 1
@@ -73,13 +84,21 @@ def fused_locate_plain(
 
     k0 = spline_keys[s]
     k1 = spline_keys[s + 1]
-    dk = _split_delta_f32(queries, k0)
-    seg = _split_delta_f32(k1, k0)
-    t = torch.clamp(dk / torch.clamp(seg, min=1.0), 0.0, 1.0)
-    p0 = spline_pos32[s]
-    d = spline_pos32[s + 1] - p0
-    p = (t.to(torch.float64) * d.to(torch.float64)
-         + p0.to(torch.float64)).to(torch.float32)
+    p0 = spline_pos[s]
+    p1 = spline_pos[s + 1]
+    if interp64:
+        dk = (queries - k0).to(torch.float64)
+        seg = torch.clamp((k1 - k0).to(torch.float64), min=1.0)
+        t = torch.clamp(dk / seg, 0.0, 1.0)
+        p = p0 + t * (p1 - p0)
+    else:
+        dk = _split_delta_f32(queries, k0)
+        seg = _split_delta_f32(k1, k0)
+        t = torch.clamp(dk / torch.clamp(seg, min=1.0), 0.0, 1.0)
+        p0 = p0.to(torch.float32)
+        d = p1.to(torch.float32) - p0
+        p = (t.to(torch.float64) * d.to(torch.float64)
+             + p0.to(torch.float64)).to(torch.float32)
 
     c = torch.clamp(torch.round(p).to(torch.int64), 0, cap - 1)
     start = torch.clamp((c // window - 1) * window, 0, max(cap - L, 0))
@@ -95,13 +114,15 @@ def fused_locate_plain(
 
 _DTYPES = {
     "table": torch.int32, "spline_keys": torch.int64,
-    "spline_pos32": torch.float32, "shift": torch.int32,
+    "spline_pos": torch.float64, "shift": torch.int32,
     "slot_keys": torch.int64, "queries": torch.int64, "sid": torch.int64,
 }
 
 
 def _check_inputs(device, **arrays) -> None:
     for name, x in arrays.items():
+        if x is None:
+            continue
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
         if x.dtype != _DTYPES[name]:
@@ -111,30 +132,35 @@ def _check_inputs(device, **arrays) -> None:
 
 
 def fused_locate(
-    table, spline_keys, spline_pos32, shift, slot_keys, queries, sid,
+    table, spline_keys, spline_pos, shift, slot_keys, queries, sid=None,
     *, n_table: int, n_knots: int, cap: int, window: int, rs_iters: int,
+    interp64: bool = False,
 ):
     """K1: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. Same contract as ``fused_locate_plain``."""
     kw = dict(n_table=n_table, n_knots=n_knots, cap=cap, window=window,
-              rs_iters=rs_iters)
+              rs_iters=rs_iters, interp64=interp64)
     if queries.device.type == "cpu":
-        return fused_locate_plain(table, spline_keys, spline_pos32, shift,
+        return fused_locate_plain(table, spline_keys, spline_pos, shift,
                                   slot_keys, queries, sid, **kw)
     if queries.device.type != "cuda":
         raise ValueError(f"no fused locate kernel for {queries.device}")
+    if n_knots < 2:
+        raise ValueError("the fused locate needs a model with at least one "
+                         "spline segment (n_knots >= 2)")
     _check_inputs(queries.device, table=table, spline_keys=spline_keys,
-                  spline_pos32=spline_pos32, shift=shift,
+                  spline_pos=spline_pos, shift=shift,
                   slot_keys=slot_keys, queries=queries, sid=sid)
     n = queries.shape[0]
     j = torch.empty(n, dtype=torch.int64, device=queries.device)
     start = torch.empty(n, dtype=torch.int64, device=queries.device)
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = build.library().fused_locate_launch(
-        table.data_ptr(), spline_keys.data_ptr(), spline_pos32.data_ptr(),
+        table.data_ptr(), spline_keys.data_ptr(), spline_pos.data_ptr(),
         shift.data_ptr(), slot_keys.data_ptr(), queries.data_ptr(),
-        sid.data_ptr(), j.data_ptr(), start.data_ptr(),
-        n, n_table, n_knots, cap, window, rs_iters, stream,
+        None if sid is None else sid.data_ptr(), j.data_ptr(),
+        start.data_ptr(), n, n_table, n_knots, cap, window, rs_iters,
+        int(interp64), stream,
     )
     build.check(err, "fused_locate")
     fused_locate.launches += 1

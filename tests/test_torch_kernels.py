@@ -83,7 +83,7 @@ def _flat_index(domains, n=3000):
     return dict(
         keys=[k for k, _, _, _ in shards],
         table=np.concatenate(table), knots=np.concatenate(knots),
-        pos=np.concatenate(pos).astype(np.float32),
+        pos=np.concatenate(pos),
         slots=np.concatenate(slots), shift=np.asarray(shift, np.int32),
         n_table=len(table[0]), n_knots=n_knots, cap=cap,
     )
@@ -115,7 +115,8 @@ def _pallas_locate(f, q, sid):
     q_hi, q_lo = split_key(jnp.asarray(qp))
     i32 = lambda x: jnp.asarray(x.astype(np.int32))  # noqa: E731
     j, start = fused_locate_pallas(
-        jnp.asarray(f["table"]), sk_hi, sk_lo, jnp.asarray(f["pos"]),
+        jnp.asarray(f["table"]), sk_hi, sk_lo,
+        jnp.asarray(f["pos"].astype(np.float32)),
         sl_hi, sl_lo, q_hi, q_lo,
         i32(sp * f["n_table"]), i32(sp * f["n_knots"]), i32(sp * f["cap"]),
         i32(f["shift"][sp]),
@@ -125,13 +126,13 @@ def _pallas_locate(f, q, sid):
     return np.asarray(j)[: len(q)], np.asarray(start)[: len(q)]
 
 
-def _torch_locate(fn, f, q, sid, device="cpu"):
+def _torch_locate(fn, f, q, sid, device="cpu", **kw):
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     j, start = fn(
         t(f["table"]), t(f["knots"]), t(f["pos"]), t(f["shift"]),
-        t(f["slots"]), t(q), t(sid),
+        t(f["slots"]), t(q), None if sid is None else t(sid),
         n_table=f["n_table"], n_knots=f["n_knots"], cap=f["cap"],
-        window=WINDOW, rs_iters=RS_ITERS,
+        window=WINDOW, rs_iters=RS_ITERS, **kw,
     )
     return j.cpu().numpy(), start.cpu().numpy()
 
@@ -151,10 +152,86 @@ def test_fused_locate_plain_matches_pallas(domains):
     j2, _ = _torch_locate(fused_locate, f, q, sid)
     np.testing.assert_array_equal(j2, j_ref)
     assert ops.launch_counts() == before
+    if len(domains) == 1:  # a single shard needs no shard ids
+        j3, start3 = _torch_locate(fused_locate, f, q, None)
+        np.testing.assert_array_equal(j3, j_ref)
+        np.testing.assert_array_equal(start3, start_ref)
     # hits are found exactly: the slot at j holds the query key
     hits = np.isin(q, np.concatenate(f["keys"])) & (q != KEY_MAX)
     flat = sid[hits] * f["cap"] + j[hits]
     np.testing.assert_array_equal(f["slots"][flat], q[hits])
+
+
+@pytest.mark.parametrize("domain", ["small", "big", "mid"])
+def test_fused_locate_interp64_matches_spline_path(domain):
+    """Above the f32 position bound the JAX package leaves the TPU kernel
+    for its float64 spline path; K1's float64 mode must give that path's
+    (j, icap), here held to the JAX ``_locate`` and the port's own."""
+    from repro.core.fops import _locate as jax_locate
+    from repro.core.state import UpLIFStatic as JaxStatic
+    from repro.core.types import RadixSplineModel as JaxModel
+    from repro_torch.core.fops import _locate as torch_locate
+    from repro_torch.core.state import UpLIFStatic
+
+    f = _flat_index((domain,))
+    q, _ = _queries(f["keys"], (domain,), seed=21)
+    j, start = _torch_locate(fused_locate, f, q, None, interp64=True)
+    icap = start + (min(3 * WINDOW, f["cap"]) - 1)
+
+    _, slots, model, _ = _shard(3000, DOMAINS[domain], 11)
+    kw = dict(window=WINDOW, movement_k=6, rs_iters=RS_ITERS,
+              insert_rounds=3, fanout=16, bmat_kind="b+mat", locate="spline")
+    jm = JaxModel(*[jnp.asarray(a.numpy()) for a in model])
+    j_ref, icap_ref = jax_locate(JaxStatic(**kw), jnp.asarray(slots), jm,
+                                 jnp.asarray(q))
+    np.testing.assert_array_equal(j, np.asarray(j_ref))
+    np.testing.assert_array_equal(icap, np.asarray(icap_ref))
+    j_t, icap_t = torch_locate(UpLIFStatic(**kw), torch.as_tensor(slots),
+                               model, torch.as_tensor(q))
+    np.testing.assert_array_equal(j, j_t.numpy())
+    np.testing.assert_array_equal(icap, icap_t.numpy())
+
+
+def test_fused_locate_modes_at_a_rounding_edge():
+    """A query whose exact position is 127.5 - 2^-28: float32 key deltas
+    round it to 127.5 (rounded half to even: slot 128, span from row 1),
+    float64 keeps it below (slot 127, span from row 0). The float32 mode
+    must agree with the Pallas kernel and the float64 mode with the spline
+    path, in JAX and in the port."""
+    from repro.core.fops import _locate as jax_locate
+    from repro.core.state import UpLIFStatic as JaxStatic
+    from repro.core.types import RadixSplineModel as JaxModel
+    from repro_torch.core.fops import _locate as torch_locate
+    from repro_torch.core.state import UpLIFStatic
+
+    cap, step = 4096, 1 << 28
+    model, _ = build_radix_spline(np.asarray([0, cap * step]),
+                                  np.asarray([0, cap]), device="cpu")
+    slots = np.arange(cap, dtype=np.int64) * step
+    q = np.asarray([255 * step // 2 - 1, 5 * step, KEY_MAX], np.int64)
+    f = dict(table=model.table.numpy(), knots=model.spline_keys.numpy(),
+             pos=model.spline_pos.numpy(), slots=slots,
+             shift=model.shift.numpy().reshape(1), n_table=model.table.shape[0],
+             n_knots=model.spline_keys.shape[0], cap=cap)
+    sid = np.zeros(len(q), np.int64)
+    j32, start32 = _torch_locate(fused_locate, f, q, sid)
+    j64, start64 = _torch_locate(fused_locate, f, q, sid, interp64=True)
+    assert (j32[0], start32[0], j64[0], start64[0]) == (127, 64, 127, 0)
+
+    j_ref, start_ref = _pallas_locate(f, q, sid)
+    np.testing.assert_array_equal(j32, j_ref)
+    np.testing.assert_array_equal(start32, start_ref)
+    kw = dict(window=WINDOW, movement_k=6, rs_iters=RS_ITERS,
+              insert_rounds=3, fanout=16, bmat_kind="b+mat", locate="spline")
+    jm = JaxModel(*[jnp.asarray(a.numpy()) for a in model])
+    j_s, icap_s = jax_locate(JaxStatic(**kw), jnp.asarray(slots), jm,
+                             jnp.asarray(q))
+    np.testing.assert_array_equal(j64, np.asarray(j_s))
+    np.testing.assert_array_equal(start64 + 3 * WINDOW - 1, np.asarray(icap_s))
+    j_t, icap_t = torch_locate(UpLIFStatic(**kw), torch.as_tensor(slots),
+                               model, torch.as_tensor(q))
+    np.testing.assert_array_equal(j64, j_t.numpy())
+    np.testing.assert_array_equal(start64 + 3 * WINDOW - 1, icap_t.numpy())
 
 
 def _bmat_arrays(n_shards, cap, fanout, seed):
@@ -206,6 +283,34 @@ def test_bmat_rank_plain_matches_pallas(n_shards, cap, fanout):
     via_wrapper = bmat_rank(t(keys.reshape(-1)), t(fences.reshape(-1)), t(q),
                             t(sid), cap=cap, nf=nf, fanout=fanout).numpy()
     np.testing.assert_array_equal(via_wrapper, ref)
+    if n_shards == 1:  # a single BMAT needs no shard ids
+        no_sid = bmat_rank(t(keys.reshape(-1)), t(fences.reshape(-1)), t(q),
+                           cap=cap, nf=nf, fanout=fanout).numpy()
+        np.testing.assert_array_equal(no_sid, ref)
+
+
+def test_bound_counts_each_read_once():
+    """``chip_smoke.py`` bounds a kernel by the distinct elements its plain
+    version reads: a batch of copies of one query reads what one query
+    reads."""
+    import chip_smoke
+
+    keys, fences = _bmat_arrays(1, 4096, 16, seed=2)
+    t = torch.as_tensor
+    k, fe = t(keys.reshape(-1)), t(fences.reshape(-1))
+    kw = dict(cap=4096, nf=fences.shape[1], fanout=16)
+    arrays = dict(keys=k, fences=fe)
+    one = chip_smoke.read_footprint(torch, bmat_rank_plain, (k, fe, t(keys[0, 5:6])),
+                                    kw, arrays)
+    many = chip_smoke.read_footprint(torch, bmat_rank_plain,
+                                     (k, fe, t(np.repeat(keys[0, 5:6], 100))),
+                                     kw, arrays)
+    fence_iters = int(np.ceil(np.log2(fences.shape[1] + 1)))
+    node_iters = int(np.ceil(np.log2(17)))
+    assert 0 < one == many <= 8 * (fence_iters + node_iters)
+    spread = chip_smoke.read_footprint(
+        torch, bmat_rank_plain, (k, fe, t(keys[0, :2048:16])), kw, arrays)
+    assert spread > one
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +391,9 @@ def test_bmat_primitives_byte_identical(fanout):
 
 
 def test_guards():
-    assert ops.locate_fusable(ops.MAX_F32_POSITIONS, 64, 64, 1)
-    assert not ops.locate_fusable(ops.MAX_F32_POSITIONS + 1, 64, 64, 1)
-    assert not ops.locate_fusable(1024, 1, 64, 1)
+    assert ops.locate_fusable(ops.MAX_F32_POSITIONS, 64)
+    assert not ops.locate_fusable(ops.MAX_F32_POSITIONS + 1, 64)
+    assert not ops.locate_fusable(1024, 1)
     assert ops.rank_fusable(1 << 30, 1 << 26)
     assert ops.native_kernels("cuda") and not ops.native_kernels("cpu")
 
@@ -299,13 +404,16 @@ def test_guards():
 
 
 @pytest.mark.gpu
-def test_fused_locate_cuda_matches_plain(cuda):
+@pytest.mark.parametrize("interp64", [False, True])
+def test_fused_locate_cuda_matches_plain(cuda, interp64):
     domains = ("small", "big", "mid")
     f = _flat_index(domains)
     q, sid = _queries(f["keys"], domains, seed=9)
-    j0, s0 = _torch_locate(fused_locate_plain, f, q, sid, device=cuda)
+    j0, s0 = _torch_locate(fused_locate_plain, f, q, sid, device=cuda,
+                           interp64=interp64)
     before = fused_locate.launches
-    j1, s1 = _torch_locate(fused_locate, f, q, sid, device=cuda)
+    j1, s1 = _torch_locate(fused_locate, f, q, sid, device=cuda,
+                           interp64=interp64)
     torch.cuda.synchronize()
     assert fused_locate.launches == before + 1
     np.testing.assert_array_equal(j1, j0)

@@ -86,6 +86,32 @@ def test_tape_matches_jax(locate, kind):
     _run_both(jidx, tidx, ops_tape, probes)
 
 
+@pytest.mark.parametrize("kind", ["rbmat", "b+mat"])
+def test_fused_above_f32_bound_matches_jax(kind, monkeypatch):
+    """Above the f32 position bound the JAX fused strategy falls back to
+    its float64 spline path, while the port's keeps K1 and asks it for
+    float64 interpolation. The bound is lowered below the test index's
+    capacity; the port must still match the JAX index op by op."""
+    from repro_torch.kernels import ops, spline_lookup
+
+    monkeypatch.setattr(ops, "MAX_F32_POSITIONS", 1024)
+    modes = []
+    plain = spline_lookup.fused_locate_plain
+
+    def spy(*a, **k):
+        modes.append(k["interp64"])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(spline_lookup, "fused_locate_plain", spy)
+    base, vals, ops_tape, probes, _ = _tape(0)
+    jidx = JaxUpLIF(base, vals, JaxConfig(locate="spline", bmat_type=kind))
+    tidx = UpLIF(base, vals, UpLIFConfig(locate="fused", bmat_type=kind),
+                 device="cpu")
+    assert tidx.capacity > ops.MAX_F32_POSITIONS
+    _run_both(jidx, tidx, ops_tape, probes)
+    assert modes and all(modes)
+
+
 def test_bulk_load_byte_identical():
     """The port's own bulk load builds the JAX index's arrays, byte for
     byte, and the converter carries a JAX-built index over unchanged."""
