@@ -7,41 +7,61 @@ Imports only the port (``src/repro_torch``) and runs:
 
   1. card     — requires CUDA; prints the card's name and power limit;
   2. build    — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-                (nvcc, sm_90a) and prints the build seconds;
-  3. main path — bulk-loads 4M wikits keys into ``UpLIF`` with the default
-                config ("auto" resolves to the fused kernels), serves the four
-                read/write mixes of ``WORKLOADS`` in 4096-op waves and a delete
-                phase; every read must be found with value key + 1, deleted
-                keys must miss, and both kernels' launch counts must grow in
-                every phase; then ``torch.profiler`` over 20 write-heavy
-                waves gives the device's busy and idle share per wave and
-                its busiest operations;
-  4. kernels  — each kernel against its plain torch version on the card, on
-                the main path's final state and on an fb index (radix shift
-                36), with hits, misses and above-domain keys; K1 also in its
-                float64-interpolation mode;
-  5. large index — all 8M wikits keys, a capacity above the float32
+                (nvcc, sm_90a, one process per source) and prints the build
+                seconds;
+  3. main path, single index — bulk-loads 4M wikits keys into ``UpLIF`` with
+                the default config ("auto" resolves to the fused kernels),
+                serves the four read/write mixes of ``WORKLOADS`` in 4096-op
+                waves and a delete phase; every read must be found with value
+                key + 1, deleted keys must miss, and K1 and K2's launch counts
+                must grow in every phase; then ``torch.profiler`` over 20
+                write-heavy waves gives the device's busy and idle share;
+  4. main path, router + tuner — bulk-loads the same 4M keys into
+                ``ShardedUpLIF(n_shards=4)``, attaches the synchronous
+                ``SelfTuner`` and serves the four mixes (``observe_inserts``
+                and ``after_wave`` every wave, as ``examples/serve_index.py``
+                does); every read is checked, K1 and K2 must launch in every
+                phase and K3 (the forecaster's E-step) in every phase with
+                writes; then one each of retrain-shard (with the forecaster's
+                GMM), split-shard and merge-shards through the scheduler's
+                dispatch and a BMAT switch, each followed by a checked read
+                wave; the live contents must equal the loaded plus inserted
+                keys; a profile of 20 write-heavy waves with the tuner;
+  5. kernels  — each kernel against its plain torch version on the card: K1
+                and K2 on the main path's final state and on an fb index
+                (radix shift 36), with hits, misses and above-domain keys, K1
+                also in its float64-interpolation mode; K3 on unit-domain
+                samples (N in 100..8192, K in 2, 4, 8) and on the
+                forecaster's own inputs;
+  6. large index — all 8M wikits keys, a capacity above the float32
                 position bound: lookups and an insert wave go through K1's
                 float64 mode, which must equal the spline path;
-  6. whole path — a short op tape through the port on the card and on the
-                CPU: visible results, insert overflow counts, live contents
-                and the slot and BMAT arrays must be identical;
-  7. timing   — on a main-path batch (one mixed wave's 2048 reads and 2048
-                insert keys), warmed up: each kernel's device time per
+  7. whole path — short op tapes through the port on the card and on the
+                CPU, for the single index and for the router with scripted
+                maintenance (split, merge, shard retrain with a fixed GMM,
+                BMAT switch, presize, a mixed locate assignment): results,
+                overflow counts, boundaries and the slot and BMAT arrays
+                must be identical;
+  8. timing   — K1 and K2 on a main-path batch (one mixed wave's 2048 reads
+                and 2048 insert keys), K3 on one write-heavy router wave's
+                2048 insert keys, warmed up: each kernel's device time per
                 launch (``ms``, from the profiler's device events), the time
-                per call of the ``ops`` adapter the index calls, between
-                CUDA events (``call_ms``, host dispatch included), its plain
-                version's and a one-call PyTorch yardstick's device time,
-                and the bound, printed as one JSON line.
+                per call of the entry the index calls (the ``ops`` adapter
+                for K1 and K3, the wrapper for K2), between CUDA events
+                (``call_ms``, host dispatch included), its plain
+                version's and a one-call PyTorch yardstick's device time
+                (none exists for K3), and the bound, printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before it, as does a machine without CUDA.
 
 Bound (``bound_ms``): the larger of bytes over the H100's 3.35 TB/s and
-float32 operations over 67 TFLOP/s. Bytes count each element the batch
-needs once: the queries and outputs, plus the distinct table, knot,
-position, slot, fence and node elements that the plain version reads on
-this batch (recorded while it runs), at their stored widths.
+float32 operations over 67 TFLOP/s. For K1 and K2, bytes count each element
+the batch needs once: the queries and outputs, plus the distinct table,
+knot, position, slot, fence and node elements that the plain version reads
+on this batch (recorded while it runs), at their stored widths. For K3,
+bytes are the samples, the parameters and the [N, K] output once, and the
+operations are 11 per sample and component.
 """
 from __future__ import annotations
 
@@ -62,11 +82,17 @@ BATCH = 4096
 N_KEYS = 8_000_000          # wikits keys generated; half are bulk-loaded
 WAVES = 200                 # 4096-op waves per read/write mix
 DELETE_WAVES = 16
+ROUTER_WAVES = 100          # 4096-op waves per mix through the router
+N_SHARDS = 4
 FB_KEYS = 4_000_000
 K1_SOURCE = "src/repro_torch/kernels/csrc/fused_locate.cu"
 K2_SOURCE = "src/repro_torch/kernels/csrc/bmat_rank.cu"
+K3_SOURCE = "src/repro_torch/kernels/csrc/gmm_estep.cu"
 K1_REPLACES = "src/repro/kernels/spline_lookup.py:208"
 K2_REPLACES = "src/repro/kernels/bmat_rank.py:70"
+K3_REPLACES = "src/repro/kernels/gmm_estep.py:28"
+K3_OPS = 11          # float32 operations per sample and component
+K3_TOL = 1e-5        # the tolerance of tests/test_kernels.py
 
 
 class SmokeFailure(RuntimeError):
@@ -126,8 +152,10 @@ def run_main_path(torch, index, runner, waves: int, delete_waves: int):
                 n_reads += len(reads)
                 require(found.all(), f"{mix}: {int((~found).sum())} reads missed")
                 require(np.array_equal(vals, reads + 1), f"{mix}: wrong values")
-        phases.append(_phase_report(torch, index, mix, lat, n_ops, before,
-                                    ops.launch_counts(), reads=n_reads))
+        phases.append(_phase_report(
+            torch, mix, lat, n_ops, before, ops.launch_counts(), n_reads,
+            UPLIF_KERNELS, bmat_size=index.bmat.size, capacity=index.capacity,
+        ))
 
     # delete phase: known keys (bulk-loaded and never deleted before)
     victims = runner.init_keys[:: max(1, len(runner.init_keys) // (delete_waves * BATCH))]
@@ -141,16 +169,20 @@ def run_main_path(torch, index, runner, waves: int, delete_waves: int):
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         require(hit.all(), f"delete: {int((~hit).sum())} known keys not hit")
-    phases.append(_phase_report(torch, index, "delete", lat, len(victims),
-                                before, ops.launch_counts(), reads=0))
+    phases.append(_phase_report(
+        torch, "delete", lat, len(victims), before, ops.launch_counts(), 0,
+        UPLIF_KERNELS, bmat_size=index.bmat.size, capacity=index.capacity,
+    ))
     found, _ = index.lookup(victims[:BATCH])
     require(not found.any(), "deleted keys are still found")
     return phases, ops.launch_counts()
 
 
-def profile_waves(torch, index, runner, rate: float, waves: int):
-    """Device busy and idle share over a few mixed waves, from the
-    profiler's device events (kernels and copies on the one stream)."""
+def profile_waves(torch, index, runner, rate: float, waves: int,
+                  tuner=None, label="uplif"):
+    """Device busy and idle share over a few mixed waves (each followed by
+    the tuner's calls when one is given), from the profiler's device events
+    (kernels and copies on the one stream)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,9 +190,14 @@ def profile_waves(torch, index, runner, rate: float, waves: int):
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(waves):
+            w0 = time.perf_counter()
             reads, ins = runner.next_batch(rate)
             index.lookup(reads)
             index.insert(ins, ins + 1)
+            if tuner is not None:
+                tuner.observe_inserts(ins)
+                tuner.after_wave(len(reads) + len(ins),
+                                 time.perf_counter() - w0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -173,25 +210,29 @@ def profile_waves(torch, index, runner, rate: float, waves: int):
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     rep = {
-        "waves": waves, "write_rate": rate,
+        "path": label, "waves": waves, "write_rate": rate,
         "wall_ms_per_wave": wall_ms / waves,
         "device_busy_ms_per_wave": busy_ms / waves,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ops_per_wave": len(dev) / waves,
-        "k1_k2_device_ms_per_wave": sum(
-            v for k, v in by_name.items()
-            if "fused_locate_kernel" in k or "bmat_rank_kernel" in k
-        ) / 1e3 / waves,
+        "kernel_device_ms_per_wave": {
+            name: sum(v for k, v in by_name.items() if name in k) / 1e3 / waves
+            for name in ("fused_locate_kernel", "bmat_rank_kernel",
+                         "gmm_estep_kernel")
+        },
         "top_device_ms_per_wave": {k[:60]: v / 1e3 / waves for k, v in top},
     }
     print("profile " + json.dumps(rep), flush=True)
     return rep
 
 
-def _phase_report(torch, index, name, lat, n_ops, before, after, reads):
+def _phase_report(torch, name, lat, n_ops, before, after, reads, kernels,
+                  **extra):
+    """One phase's numbers; every kernel in ``kernels`` must have launched
+    during the phase."""
     grew = {k: after[k] - before[k] for k in after}
-    require(all(v > 0 for v in grew.values()),
-            f"{name}: a kernel was not launched: {grew}")
+    require(all(grew[k] > 0 for k in kernels),
+            f"{name}: a kernel of {kernels} was not launched: {grew}")
     lat_ms = np.asarray(lat) * 1e3
     rep = {
         "phase": name,
@@ -202,12 +243,169 @@ def _phase_report(torch, index, name, lat, n_ops, before, after, reads):
         "wave_ms_p50": float(np.percentile(lat_ms, 50)),
         "wave_ms_p99": float(np.percentile(lat_ms, 99)),
         "launches_per_wave": {k: v / len(lat) for k, v in grew.items()},
-        "bmat_size": index.bmat.size,
-        "capacity": index.capacity,
+        **extra,
         "device_mem_mib": torch.cuda.memory_allocated() / 2**20,
     }
     print("phase " + json.dumps(rep), flush=True)
     return rep
+
+
+UPLIF_KERNELS = ("fused_locate", "bmat_rank")
+
+
+# ---------------------------------------------------------------------------
+# main path: the router with the self-tuning loop
+# ---------------------------------------------------------------------------
+
+
+def _router_wave(torch, router, tuner, runner, rate, label):
+    """One served wave, as ``examples/serve_index.py`` serves it: lookup and
+    insert (timed; the wave ends in a sync), then the tuner's calls (timed
+    apart). Every read is checked."""
+    reads, ins = runner.next_batch(rate)
+    t0 = time.perf_counter()
+    if len(reads):
+        found, vals = router.lookup(reads)
+    if len(ins):
+        router.insert(ins, ins + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if len(reads):
+        require(found.all(), f"{label}: {int((~found).sum())} reads missed")
+        require(np.array_equal(vals, reads + 1), f"{label}: wrong values")
+    t1 = time.perf_counter()
+    if tuner is not None:
+        tuner.observe_inserts(ins)
+        tuner.after_wave(len(reads) + len(ins), dt)
+    return ins, dt, time.perf_counter() - t1, len(reads)
+
+
+def run_router_path(torch, keys, waves: int):
+    """The router + sync tuner through the four mixes; returns the router,
+    the tuner, the runner, the inserted key batches, the per-phase reports
+    and the launch counts of the run (counts reset just before it)."""
+    from repro_torch.core import ShardedUpLIF
+    from repro_torch.data import WORKLOADS, WorkloadRunner
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import SelfTuner
+
+    runner = WorkloadRunner(keys, init_frac=0.5, batch=BATCH, seed=0)
+    t0 = time.perf_counter()
+    router = ShardedUpLIF(runner.init_keys, runner.init_keys + 1,
+                          n_shards=N_SHARDS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cap = int(router.state.slots.keys.shape[1])
+    require(router.shard_locate() == ("fused",) * N_SHARDS,
+            "router: auto did not resolve to fused")
+    require(ops.locate_fusable(cap, router.state.model.spline_keys.shape[1]),
+            "router: per-shard capacity above the float32 position bound")
+    tuner = SelfTuner().attach(router)
+    require(tuner.forecaster.cfg.use_kernel, "forecaster is not on K3")
+    print(f"router bulk load: {len(runner.init_keys)} keys in {load_s:.1f} s, "
+          f"{router.n_shards} shards of {cap} slots, knots "
+          f"{router.state.model.spline_keys.shape[1]}, rs_iters "
+          f"{router.rs_iters}, device memory "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB", flush=True)
+
+    inserted = []
+    for _ in range(2):  # warm-up waves, checked but not timed or counted
+        inserted.append(_router_wave(torch, router, tuner, runner, 0.5,
+                                     "router warm-up")[0])
+    ops.reset_launch_counts()
+    phases = []
+    for mix, rate in WORKLOADS.items():
+        before = ops.launch_counts()
+        lat, tun, n_ops, n_reads = [], [], 0, 0
+        for _ in range(waves):
+            ins, dt, tt, nr = _router_wave(torch, router, tuner, runner, rate,
+                                           f"router {mix}")
+            inserted.append(ins)
+            lat.append(dt)
+            tun.append(tt)
+            n_ops += nr + len(ins)
+            n_reads += nr
+        st = tuner.stats()
+        tun_ms = np.asarray(tun) * 1e3
+        phases.append(_phase_report(
+            torch, f"router {mix}", lat, n_ops, before, ops.launch_counts(),
+            n_reads, UPLIF_KERNELS + (("gmm_estep",) if rate > 0 else ()),
+            mops_per_s_with_tuner=n_ops / float(np.sum(lat) + np.sum(tun))
+            / 1e6,
+            tuner_ms_p50=float(np.percentile(tun_ms, 50)),
+            tuner_ms_p99=float(np.percentile(tun_ms, 99)),
+            tuner_ms_total=float(tun_ms.sum()),
+            bmat_size=router.measures()["bmat_size"],
+            capacity=router.capacity,
+            tuner={k: st[k] for k in ("plans", "commits", "conflicts",
+                                       "abandoned", "actions", "n_shards",
+                                       "epoch", "time_in_maintenance_s")},
+        ))
+    return router, tuner, runner, inserted, phases, ops.launch_counts()
+
+
+def router_maintenance(torch, router, tuner, runner, inserted):
+    """One each of retrain-shard (with the forecaster's GMM), split-shard
+    and merge-shards through the scheduler's build + commit, and a BMAT
+    switch (the scheduler's direct action); a checked read wave after
+    each."""
+    from repro_torch.tuning import (
+        A_MERGE_SHARDS, A_RETRAIN_SHARD, A_SPLIT_SHARD,
+    )
+
+    sched = tuner.scheduler
+    require(tuner.forecaster.ready, "the forecaster has no forecast yet")
+    hot = int(np.argmax(router.state.bmat.size.cpu().numpy()))
+
+    def dispatch(action, shard):
+        plan = sched._make_plan(action, shard, False)
+        if action == A_RETRAIN_SHARD:
+            require(plan.gmm is tuner.forecaster.gmm,
+                    "the retrain plan does not carry the forecaster's GMM")
+        return sched._dispatch(router, plan)
+
+    def switch_bmat():
+        router.switch_bmat_type()
+        return True
+
+    steps = [
+        ("retrain_shard", lambda: dispatch(A_RETRAIN_SHARD, hot)),
+        ("split_shard", lambda: dispatch(A_SPLIT_SHARD, 0)),
+        ("merge_shards", lambda: dispatch(A_MERGE_SHARDS, 0)),
+        ("switch_bmat", switch_bmat),
+    ]
+    report = []
+    for name, step in steps:
+        bsize = int(router.state.bmat.size.sum())
+        t0 = time.perf_counter()
+        ok = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(ok, f"maintenance {name} did not commit")
+        inserted.append(_router_wave(torch, router, None, runner, 0.0,
+                                     f"read wave after {name}")[0])
+        report.append({"action": name, "seconds": dt,
+                       "bmat_size_before": bsize,
+                       "bmat_size_after": int(router.state.bmat.size.sum()),
+                       "n_shards": router.n_shards, "epoch": router.epoch})
+    print("maintenance " + json.dumps(report), flush=True)
+    return report
+
+
+def check_router_contents(router, runner, inserted):
+    """The router's live contents equal the loaded plus inserted keys, each
+    with value key + 1."""
+    want = np.unique(np.concatenate([runner.init_keys] + inserted))
+    parts = [router._unstack_shell(s).extract_live()
+             for s in range(router.n_shards)]
+    keys = np.concatenate([k for k, _ in parts])
+    vals = np.concatenate([v for _, v in parts])
+    require(np.array_equal(keys, want),
+            f"router contents: {len(keys)} live keys, expected {len(want)}")
+    require(np.array_equal(vals, keys + 1), "router contents: wrong values")
+    require(router.size == len(want), "router size differs from its contents")
+    print(f"router contents: {len(keys)} live keys == loaded + inserted",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -247,16 +445,36 @@ def query_mix(rng, keys, n=BATCH):
     ]).astype(np.int64)
 
 
-def compare_kernels(torch, index, queries, label):
-    """Each kernel against its plain version on the card (K1 in both of its
-    interpolation modes); returns (k1 max abs err, k2 max abs err)."""
+def router_kernel_inputs(torch, router, queries):
+    """K1 and K2 inputs as the router's stacked ops give them: arrays flat
+    over the shard axis, a shard id per query."""
+    st = router._static()
+    m, b = router.state.model, router.state.bmat
+    S, cap = router.state.slots.keys.shape
+    q = torch.as_tensor(queries, device=router.device)
+    sid = torch.searchsorted(router._tbounds, q, right=True)
+    k1 = dict(
+        args=(m.table.reshape(-1), m.spline_keys.reshape(-1),
+              m.spline_pos.reshape(-1), m.shift,
+              router.state.slots.keys.reshape(-1), q, sid),
+        kw=dict(n_table=m.table.shape[1], n_knots=m.spline_keys.shape[1],
+                cap=cap, window=st.window, rs_iters=st.rs_iters),
+    )
+    k2 = dict(
+        args=(b.keys.reshape(-1), b.fences.reshape(-1), q, sid),
+        kw=dict(cap=b.keys.shape[1], nf=b.fences.shape[1], fanout=st.fanout),
+    )
+    return k1, k2
+
+
+def compare_kernels(torch, k1, k2, window, label):
+    """K1 and K2 against their plain versions on the card (K1 in both of
+    its interpolation modes); returns (K1 max abs err, K2 max abs err)."""
     from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
     from repro_torch.kernels.spline_lookup import (
         fused_locate, fused_locate_plain,
     )
 
-    k1, k2 = kernel_inputs(torch, index, queries)
-    W = index.cfg.window
     err1 = 0
     for interp64 in (False, True):
         kw = dict(k1["kw"], interp64=interp64)
@@ -269,18 +487,24 @@ def compare_kernels(torch, index, queries, label):
               f"(expected 0)", flush=True)
         require(torch.equal(j, j0),
                 f"{label}: K1 ({mode}) j differs from its plain version")
-        require(int((start - start0).abs().max()) <= W,
+        require(int((start - start0).abs().max()) <= window,
                 f"{label}: K1 ({mode}) start differs by more than one row")
         err1 = max(err1, int((j - j0).abs().max()),
                    int((start - start0).abs().max()))
     r = bmat_rank(*k2["args"], **k2["kw"])
     r0 = bmat_rank_plain(*k2["args"], **k2["kw"])
     torch.cuda.synchronize()
-    print(f"kernels[{label}]: K2 ranks differ {int((r != r0).sum())}; "
-          f"bmat_size {index.bmat.size}, capacity {index.capacity}, shift "
-          f"{int(index.rs_model.shift)}", flush=True)
+    print(f"kernels[{label}]: K2 ranks differ {int((r != r0).sum())}",
+          flush=True)
     require(torch.equal(r, r0), f"{label}: K2 differs from its plain version")
     return err1, int((r - r0).abs().max())
+
+
+def compare_index_kernels(torch, index, queries, label):
+    k1, k2 = kernel_inputs(torch, index, queries)
+    print(f"kernels[{label}]: bmat_size {index.bmat.size}, capacity "
+          f"{index.capacity}, shift {int(index.rs_model.shift)}", flush=True)
+    return compare_kernels(torch, k1, k2, index.cfg.window, label)
 
 
 def read_footprint(torch, plain, args, kw, arrays) -> int:
@@ -385,7 +609,7 @@ def kernel_timing(torch, index, queries):
         ),
         "bmat_rank": (
             lambda: bmat_rank(*k2["args"], **k2["kw"]),
-            lambda: ops.bmat_rank_fused(*k2["args"], **k2["kw"]),
+            lambda: bmat_rank(*k2["args"], **k2["kw"]),
             lambda: bmat_rank_plain(*k2["args"], **k2["kw"]),
             lambda: torch.searchsorted(b.keys, q),
             k2_bytes, bound_ms(k2_bytes, 0),
@@ -402,6 +626,72 @@ def kernel_timing(torch, index, queries):
         )
         for name, (kern, adapter, plain, lib, n_bytes, bound) in calls.items()
     }
+
+
+def k3_args(torch, fc, keys):
+    """K3's float32 inputs as the forecaster gives them for ``keys``."""
+    xs, w, ms, ss = fc.kernel_inputs(np.asarray(keys, dtype=np.float64))
+    return xs, w.float(), ms.float(), ss.float()
+
+
+def compare_k3(torch, fc, batch):
+    """K3 against its plain version on the card: unit-domain samples for N
+    in 100..8192 and K in 2, 4, 8, and the forecaster's own inputs for one
+    main-path insert batch. Returns the max abs error."""
+    from repro_torch.kernels.gmm_estep import gmm_estep
+    from repro_torch.kernels.ref import gmm_estep_plain
+
+    rng = np.random.default_rng(3)
+    cases = []
+    for n in (100, 2048, 5000, 8192):
+        for k in (2, 4, 8):
+            arrays = (rng.uniform(0, 1, n), rng.dirichlet(np.ones(k)),
+                      np.sort(rng.uniform(0, 1, k)), rng.uniform(0.01, 0.3, k))
+            cases.append((f"N={n} K={k}", [
+                torch.as_tensor(a.astype(np.float32), device="cuda")
+                for a in arrays]))
+    cases.append(("forecaster", list(k3_args(torch, fc, batch))))
+    err = 0.0
+    for label, args in cases:
+        got = gmm_estep(*args)
+        want = gmm_estep_plain(*args)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        rows = float((got.sum(1) - 1).abs().max())
+        require(e <= K3_TOL and rows <= K3_TOL,
+                f"K3 ({label}): max abs error {e}, row-sum error {rows}")
+        err = max(err, e)
+    print(f"kernels[gmm]: K3 max abs error {err:.3g} over {len(cases)} cases "
+          f"(tolerance {K3_TOL})", flush=True)
+    return err
+
+
+def k3_timing(torch, fc, ins):
+    """K3 on one write-heavy wave's insert keys, as the forecaster calls
+    it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gmm_estep import gmm_estep
+    from repro_torch.kernels.ref import gmm_estep_plain
+
+    args = k3_args(torch, fc, ins)
+    raw = fc.kernel_inputs(np.asarray(ins, dtype=np.float64))
+    n, k = args[0].shape[0], args[1].shape[0]
+    n_bytes = 4 * (n + n * k + 3 * k)  # samples, out, parameters
+    x = np.asarray(ins, dtype=np.float64)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        fc._responsibilities(x)
+    estep_ms = (time.perf_counter() - t0) * 1e3 / 50
+    return dict(
+        ms=device_ms(torch, lambda: gmm_estep(*args), 200),
+        call_ms=call_ms(torch, lambda: ops.gmm_estep(*raw), 200),
+        plain_ms=device_ms(torch, lambda: gmm_estep_plain(*args), 50),
+        library_ms=None,
+        bytes=n_bytes,
+        bound=bound_ms(n_bytes, n * k * K3_OPS),
+        n=n, k=k,
+        forecaster_estep_ms=estep_ms,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +729,7 @@ def large_index(torch, keys):
     require(found.all() and np.array_equal(vals, fresh + 1),
             "large index: inserted keys")
     counts = ops.launch_counts()
-    require(all(v > 0 for v in counts.values()),
+    require(all(counts[k] > 0 for k in UPLIF_KERNELS),
             f"large index: a kernel was not launched: {counts}")
     st = big.fstatic()
     q = torch.as_tensor(query_mix(rng, keys), device=big.device)
@@ -452,7 +742,7 @@ def large_index(torch, keys):
           f"{big.capacity}, shift {int(m.shift)}; reads and inserts found; "
           f"launches {counts}; K1 float64 == spline path on "
           f"{q.shape[0]} queries", flush=True)
-    err = compare_kernels(torch, big, query_mix(rng, keys), "wikits-8M")
+    err = compare_index_kernels(torch, big, query_mix(rng, keys), "wikits-8M")
     del big
     return err
 
@@ -510,6 +800,65 @@ def card_vs_cpu(torch):
           f"counts, live contents, slot and BMAT arrays)", flush=True)
 
 
+def router_card_vs_cpu(torch):
+    """The router on the card and on the CPU through one op tape with
+    scripted maintenance and a fixed GMM: every result, overflow count,
+    boundary and stacked array must be identical."""
+    from repro_torch.core import ShardedUpLIF, UpLIFConfig
+    from repro_torch.core.types import GMMState
+
+    base, ops_tape, probes = tape(seed=6)
+    lo, hi = float(base[0]), float(base[-1])
+    gmm = GMMState(
+        weights=torch.tensor([0.2, 0.3, 0.5], dtype=torch.float64),
+        means=torch.tensor([lo + 0.2 * (hi - lo), lo + 0.5 * (hi - lo),
+                            lo + 0.8 * (hi - lo)], dtype=torch.float64),
+        stds=torch.tensor([0.05, 0.1, 0.2], dtype=torch.float64) * (hi - lo),
+    )
+
+    def mixed(r):
+        r.set_shard_locate(1, "binsearch")
+        r.set_shard_locate(2, "spline")
+        return r._static().locate
+
+    steps = [
+        lambda r: r.insert(*ops_tape[0][1:]),
+        mixed,
+        lambda r: r.insert(*ops_tape[1][1:]),
+        lambda r: r.split_shard(0),
+        lambda r: r.delete(ops_tape[2][1]),
+        lambda r: r.retrain_shard(1, gmm),
+        lambda r: r.insert(*ops_tape[3][1:]),
+        lambda r: r.merge_shards(0),
+        lambda r: r.switch_bmat_type(),
+        lambda r: r.presize_bmat(2 * int(r.state.bmat.keys.shape[1])),
+        lambda r: r.insert(*ops_tape[4][1:]),
+    ]
+    results = {}
+    for dev in ("cuda", "cpu"):
+        r = ShardedUpLIF(base, base + 1, UpLIFConfig(locate="fused"),
+                         n_shards=3, device=dev)
+        out = []
+        for step in steps:
+            out.append(np.asarray(step(r), dtype=object))
+            out.append(r.boundaries.copy())
+            out.extend(r.lookup(probes))
+        st = r.state
+        arrays = [a.cpu().numpy() for part in (st.slots, st.bmat, st.counters)
+                  for a in part]
+        results[dev] = (out, arrays, r._static().locate, r.n_shards)
+    cuda, cpu = results["cuda"], results["cpu"]
+    require(cuda[2] == cpu[2] and isinstance(cuda[2], tuple),
+            f"router card vs CPU: locate {cuda[2]} / {cpu[2]}")
+    for a, b in zip(cuda[0], cpu[0]):
+        require(np.array_equal(a, b), "router: card and CPU differ on the tape")
+    for a, b in zip(cuda[1], cpu[1]):
+        require(np.array_equal(a, b), "router: card and CPU arrays differ")
+    print(f"router whole path: card == CPU on {len(steps)} steps (results, "
+          f"overflow counts, boundaries, slot, BMAT and counter arrays; "
+          f"{cuda[3]} shards, locate {cuda[2]})", flush=True)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -552,12 +901,28 @@ def main() -> int:
             "the main path's index is above the float32 position bound")
 
     phases, launches = run_main_path(torch, index, runner, WAVES, DELETE_WAVES)
-    print(f"main path launches: {launches}", flush=True)
+    print(f"main path (single index) launches: {launches}", flush=True)
     profile_waves(torch, index, runner, rate=0.5, waves=20)
 
+    router, tuner, r_runner, inserted, r_phases, r_launches = run_router_path(
+        torch, keys, ROUTER_WAVES)
+    print(f"main path (router + tuner) launches: {r_launches}", flush=True)
+    print(f"tuner: {json.dumps(tuner.stats())}", flush=True)
+    router_maintenance(torch, router, tuner, r_runner, inserted)
+    check_router_contents(router, r_runner, inserted)
+    k3_batch = r_runner.next_batch(0.5)[1]  # one write-heavy wave's inserts
+    profile_waves(torch, router, r_runner, rate=0.5, waves=20, tuner=tuner,
+                  label="router")
+
     rng = np.random.default_rng(1)
-    errs = [compare_kernels(torch, index, query_mix(rng, runner.init_keys),
-                            "wikits")]
+    errs = [
+        compare_index_kernels(torch, index, query_mix(rng, runner.init_keys),
+                              "wikits"),
+        compare_kernels(torch, *router_kernel_inputs(
+            torch, router, query_mix(rng, r_runner.init_keys)),
+            router.cfg.window, f"router, {router.n_shards} shards"),
+    ]
+    k3_err = compare_k3(torch, tuner.forecaster, k3_batch)
     fb_keys = make_dataset("fb", FB_KEYS)
     fb_runner = WorkloadRunner(fb_keys, init_frac=0.5, batch=BATCH, seed=0)
     fb = UpLIF(fb_runner.init_keys, fb_runner.init_keys + 1)
@@ -565,27 +930,36 @@ def main() -> int:
     for _ in range(8):  # fill the fb BMAT so K2 has something to rank
         _, ins = fb_runner.next_batch(1.0)
         fb.insert(ins, ins + 1)
-    errs.append(compare_kernels(torch, fb, query_mix(rng, fb_runner.init_keys),
-                                "fb"))
+    errs.append(compare_index_kernels(
+        torch, fb, query_mix(rng, fb_runner.init_keys), "fb"))
     del fb
     errs.append(large_index(torch, keys))
 
     card_vs_cpu(torch)
+    router_card_vs_cpu(torch)
 
     # a main-path batch: one mixed wave's reads and insert keys
     batch = np.concatenate(runner.next_batch(0.5))
-    errs.append(compare_kernels(torch, index, batch, "wikits main-path batch"))
+    errs.append(compare_index_kernels(torch, index, batch,
+                                      "wikits main-path batch"))
     timing = kernel_timing(torch, index, batch)
+    timing["gmm_estep"] = k3_timing(torch, tuner.forecaster, k3_batch)
+    print(f"K3 timing: N={timing['gmm_estep']['n']} K="
+          f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
+          f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
     meta = {
         "fused_locate": (K1_SOURCE, K1_REPLACES, max(e[0] for e in errs)),
         "bmat_rank": (K2_SOURCE, K2_REPLACES, max(e[1] for e in errs)),
+        "gmm_estep": (K3_SOURCE, K3_REPLACES, k3_err),
     }
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
+        by_path = {"uplif": launches[name], "router": r_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": err, "ms": t["ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_bytes": t["bytes"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

@@ -182,9 +182,16 @@ class BMAT:
         """Dependent-gather count of one rank query (performance measure S1)."""
         return bmat_height(self.size, self.tree_type, self.fanout)
 
-    def memory_bytes(self) -> int:
-        """Bytes of the device arrays."""
-        return sum(a.numel() * a.element_size() for a in self.state)
+    def memory_bytes(self, modeled: bool = False) -> int:
+        """Bytes of the device arrays; ``modeled=True`` gives the paper's
+        CPU-side layout instead (3 pointers per node for RBMAT; node slack
+        and fences for B+MAT), for Fig. 4's memory comparison."""
+        if not modeled:
+            return sum(a.numel() * a.element_size() for a in self.state)
+        if self.tree_type == RBMAT:
+            return self.size * (2 * 8 + 3 * 8 + 1)  # key+val, 3 ptrs, color
+        nodes = max(self.size // self.fanout + 1, 1)
+        return nodes * (self.fanout * 2 * 8 + 8) + self.capacity // self.fanout * 8
 
     def extract(self):
         """Live (keys, vals) as numpy."""
@@ -193,6 +200,10 @@ class BMAT:
         vals = self.state.vals[:n].cpu().numpy()
         live = vals != TOMBSTONE
         return keys[live], vals[live]
+
+    def switch_type(self) -> None:
+        """Tuning action A3: RBMAT <-> B+MAT (the state is layout-agnostic)."""
+        self.tree_type = BPMAT if self.tree_type == RBMAT else RBMAT
 
     # -- internals -----------------------------------------------------------
     def _grow(self, need: int) -> None:
@@ -208,4 +219,20 @@ class BMAT:
             vals=vals,
             fences=_make_fences(keys, self.fanout),
             size=self.state.size,
+        )
+
+    def _rebuild(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        """Fresh arrays holding exactly the sorted (keys, vals)."""
+        cap = max(pow2_at_least(len(keys) + 1), _MIN_CAP)
+        k = np.full(cap, KEY_MAX, dtype=np.int64)
+        v = np.zeros(cap, dtype=np.int64)
+        k[: len(keys)] = keys
+        v[: len(keys)] = vals
+        dev = self.state.keys.device
+        kt = torch.tensor(k, device=dev)
+        self.state = BMATState(
+            keys=kt,
+            vals=torch.tensor(v, device=dev),
+            fences=_make_fences(kt, self.fanout),
+            size=torch.tensor(len(keys), dtype=torch.int32, device=dev),
         )

@@ -1,4 +1,5 @@
-"""Build the port's index from numpy copies of another index's arrays.
+"""Build the port's index or router from numpy copies of another index's
+arrays.
 
 The arrays arrive as numpy (for example ``np.asarray`` of each leaf of an
 index built elsewhere), in the field order of the port's NamedTuples, so
@@ -19,6 +20,7 @@ from repro_torch.core.types import (
     RSStatic,
     SlotsState,
 )
+from repro_torch.core.sharded import ShardedUpLIF, _ShardMeta
 from repro_torch.core.uplif import UpLIF, UpLIFConfig
 
 
@@ -71,4 +73,36 @@ def uplif_from_numpy(
         alpha=float(alpha),
         config=config,
         device=device,
+    )
+
+
+def sharded_from_numpy(
+    slots, model, bmat, counters, *,
+    boundaries: np.ndarray,
+    metas: Sequence[dict],
+    locate_per_shard: Sequence[str],
+    bmat_kind: str,
+    rs_iters: int,
+    config: UpLIFConfig,
+    device,
+) -> ShardedUpLIF:
+    """A ``ShardedUpLIF`` around a stacked ``state_from_numpy(...)`` (every
+    leaf with a leading shard axis). ``metas`` holds one dict per shard with
+    ``rs_static`` (4 ints), ``gmm`` (weights, means, stds), ``alpha`` and
+    ``reservoir``; ``locate_per_shard`` is the per-shard strategy axis and
+    ``config`` the router's own (its per-shard BMAT budget)."""
+    state = state_from_numpy(slots, model, bmat, counters, device=device)
+    meta = [
+        _ShardMeta(
+            rs_static=RSStatic(*(int(x) for x in m["rs_static"])),
+            gmm=_tensors(GMMState, m["gmm"], "cpu"),
+            alpha=float(m["alpha"]),
+            reservoir=np.asarray(m["reservoir"], dtype=np.int64).copy(),
+        )
+        for m in metas
+    ]
+    return ShardedUpLIF.from_state(
+        state, boundaries=np.asarray(boundaries, dtype=np.int64).copy(),
+        meta=meta, config=config, bmat_kind=bmat_kind, rs_iters=rs_iters,
+        locate_per_shard=locate_per_shard, device=device,
     )

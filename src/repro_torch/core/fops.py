@@ -44,6 +44,7 @@ from repro_torch.core.state import (
 )
 from repro_torch.core.types import BMATState, KEY_MAX, TOMBSTONE, SlotsState
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.bmat_rank import bmat_rank as k2_rank
 
 _I64_MAX = int(np.iinfo(np.int64).max)
 
@@ -137,13 +138,11 @@ def _bmat_rank(static: UpLIFStatic, bmat: BMATState, queries):
     """searchsorted-left rank over the packed BMAT (layout per static)."""
     cap = bmat.keys.shape[0]
     nf = bmat.fences.shape[0]
-    if static.locate == LOCATE_FUSED and kops.rank_fusable(cap, nf):
+    if static.locate == LOCATE_FUSED:
         # K2: Definition 1 bias query r(k). The rank is an exact integer
         # search, so it equals both plain traversals for BOTH BMAT kinds.
-        return kops.bmat_rank_fused(
-            bmat.keys, bmat.fences, queries,
-            cap=cap, nf=nf, fanout=static.fanout,
-        )
+        return k2_rank(bmat.keys, bmat.fences, queries, cap=cap, nf=nf,
+                       fanout=static.fanout)
     if static.bmat_kind == RBMAT:
         return _rank_rbmat(bmat.keys, queries, max(1, int(np.log2(cap))))
     return _rank_bpmat(
@@ -444,3 +443,428 @@ def delete(state: UpLIFState, keys, *, static: UpLIFStatic):
         counters=counters,
     )
     return new_state, alive | b_alive
+
+
+# ---------------------------------------------------------------------------
+# stacked (sharded) op suite — S shards, one flat program
+#
+# The router (repro_torch/core/sharded.py) stores S shards as one stacked
+# state ([S, ...] leaves, equal per-shard shapes). These variants flatten
+# the shard axis: queries arrive as one padded batch with a per-query shard
+# id, and every gather and scatter goes through the [S*cap] view with a
+# ``sid``-derived offset, so the op count matches the single-shard program.
+# The fused branches launch K1 and K2 once for all S shards, with the shard
+# ids.
+#
+# Keys are range-partitioned across shards, so sorting a batch by key also
+# groups it by shard: the grid-segment accept and the segmented BMAT merge
+# both lean on that.
+# ---------------------------------------------------------------------------
+
+
+def _locate_stacked(static: UpLIFStatic, slot_keys, model, q, sid,
+                    codes=None):
+    """Shard-local (j, ins_cap) of the last slot of shard ``sid`` with
+    key <= q (the ``_locate`` contract). ``slot_keys`` is [S, cap]; ``q``
+    and ``sid`` are flat [N].
+
+    When ``static.locate`` is a sorted tuple of distinct strategies,
+    ``codes`` (int32[S], indices into the tuple) assigns each shard its
+    strategy: every strategy runs over the full batch and each query keeps
+    the (j, ins_cap) pair of its own shard's branch."""
+    if isinstance(static.locate, tuple):
+        sel = codes[sid]
+        j = icap = None
+        for i, strat in enumerate(static.locate):
+            ji, ici = _locate_stacked(
+                static._replace(locate=strat), slot_keys, model, q, sid
+            )
+            if j is None:
+                j, icap = ji, ici
+            else:
+                m = sel == i
+                j = torch.where(m, ji, j)
+                icap = torch.where(m, ici, icap)
+        return j, icap
+
+    S, cap = slot_keys.shape
+    flat = slot_keys.reshape(-1)
+    base = sid * cap
+
+    if static.locate == LOCATE_BINSEARCH:
+        n_iters = max(1, int(np.ceil(np.log2(cap + 1))))
+        lo = torch.zeros_like(q)
+        hi = torch.full_like(q, cap)
+        for _ in range(n_iters):
+            mid = (lo + hi) >> 1
+            go = flat[base + torch.clamp(mid, max=cap - 1)] <= q
+            lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+        return lo - 1, torch.full_like(q, cap - 1)
+
+    T = model.table.shape[1]
+    K = model.spline_keys.shape[1]
+    if static.locate == LOCATE_FUSED:
+        # K1: one launch for all S shards; the arrays flatten over the
+        # shard axis and each query carries its shard id
+        return kops.fused_locate(
+            model.table.reshape(-1), model.spline_keys.reshape(-1),
+            model.spline_pos.reshape(-1), model.shift, flat, q, sid,
+            n_table=T, n_knots=K, cap=cap, window=static.window,
+            rs_iters=static.rs_iters,
+        )
+
+    W = static.window
+    L = min(3 * W, cap)  # the 3-row span of ``_locate``
+    n_bisect = max(1, int(np.ceil(np.log2(L))))
+    tflat = model.table.reshape(-1)
+    skflat = model.spline_keys.reshape(-1)
+    spflat = model.spline_pos.reshape(-1)
+    tbase = sid * T
+    sbase = sid * K
+
+    # the bounded searches run in flat coordinates
+    n_buckets = T - 2
+    b = torch.clamp(q >> model.shift[sid].to(q.dtype), 0, n_buckets - 1)
+    lo = sbase + torch.clamp(tflat[tbase + b].to(torch.int64), min=1) - 1
+    hi = sbase + torch.clamp(tflat[tbase + b + 1].to(torch.int64), 0, K - 2)
+    for _ in range(static.rs_iters):
+        mid = (lo + hi + 1) >> 1
+        go = skflat[mid] <= q
+        lo, hi = torch.where(go, mid, lo), torch.where(go, hi, mid - 1)
+    seg = torch.clamp(lo - sbase, 0, K - 2) + sbase
+    k0 = skflat[seg]
+    k1 = skflat[seg + 1]
+    p0 = spflat[seg]
+    p1 = spflat[seg + 1]
+    dk = (q - k0).to(torch.float64)
+    span = torch.clamp((k1 - k0).to(torch.float64), min=1.0)
+    t = torch.clamp(dk / span, 0.0, 1.0)
+    p = p0 + t * (p1 - p0)
+
+    c = torch.clamp(torch.round(p).to(torch.int64), 0, cap - 1)
+    start = torch.clamp((c // W - 1) * W, 0, max(cap - L, 0))
+    lo = base + start
+    hi = base + torch.clamp(start + L - 1, max=cap - 1)
+    for _ in range(n_bisect):
+        mid = (lo + hi + 1) >> 1
+        go = flat[mid] <= q
+        lo, hi = torch.where(go, mid, lo), torch.where(go, hi, mid - 1)
+    j = torch.where(flat[base + start] <= q, lo - base, start - 1)
+    return j, start + (L - 1)
+
+
+def _probe_stacked(slots: SlotsState, j, q, sid):
+    S, cap = slots.keys.shape
+    jj = torch.clamp(j, 0, cap - 1)
+    g = sid * cap + jj
+    kk = slots.keys.reshape(-1)[g]
+    vv = slots.vals.reshape(-1)[g]
+    oo = slots.occ.reshape(-1)[g]
+    hit = (j >= 0) & (kk == q) & oo & (q != KEY_MAX)
+    alive = hit & (vv != TOMBSTONE)
+    return hit, alive, torch.where(alive, vv, 0), jj
+
+
+def _bmat_rank_stacked(static: UpLIFStatic, bmat: BMATState, q, sid,
+                       codes=None):
+    """Shard-local searchsorted-left rank (int64); q/sid are flat [N].
+
+    Mixed per-shard strategies need at most two passes: the plain rank
+    depends only on ``bmat_kind`` (spline and binsearch shards share it),
+    so only a fused-versus-plain split of the batch remains."""
+    if isinstance(static.locate, tuple):
+        rj = _bmat_rank_stacked(
+            static._replace(locate=LOCATE_BINSEARCH), bmat, q, sid
+        )
+        if LOCATE_FUSED not in static.locate:
+            return rj
+        rf = _bmat_rank_stacked(
+            static._replace(locate=LOCATE_FUSED), bmat, q, sid
+        )
+        sel = codes[sid]
+        return torch.where(sel == static.locate.index(LOCATE_FUSED), rf, rj)
+
+    S, cap = bmat.keys.shape
+    nf = bmat.fences.shape[1]
+    kflat = bmat.keys.reshape(-1)
+    base = sid * cap
+    if static.locate == LOCATE_FUSED:
+        # K2: one launch for all S BMATs, with the shard ids
+        return k2_rank(kflat, bmat.fences.reshape(-1), q, sid, cap=cap, nf=nf,
+                       fanout=static.fanout)
+    if static.bmat_kind == RBMAT:
+        levels = max(1, int(np.log2(cap)))
+        t = torch.zeros_like(q)
+        for lvl in range(levels):
+            stride = 1 << (levels - 1 - lvl)
+            s = torch.clamp((2 * t + 1) * stride - 1, max=cap - 1)
+            t = 2 * t + (kflat[base + s] < q).to(t.dtype)
+        return torch.clamp(t, max=cap)
+
+    # flat-coordinate searches; mid <= fbase + nf - 1 holds throughout, so
+    # the fence gather needs no clamp
+    fanout = static.fanout
+    fflat = bmat.fences.reshape(-1)
+    fbase = sid * nf
+    lo, hi = fbase, fbase + (nf - 1)
+    for _ in range(max(1, int(np.ceil(np.log2(nf + 1))))):
+        mid = (lo + hi) >> 1
+        go = fflat[mid] < q
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    nlo = base + torch.clamp(lo - fbase - 1, min=0) * fanout
+    nhi = torch.minimum(nlo + fanout, base + cap)
+    kcap = base + (cap - 1)
+    for _ in range(max(1, int(np.ceil(np.log2(fanout + 1))))):
+        mid = (nlo + nhi) >> 1
+        go = kflat[torch.minimum(mid, kcap)] < q
+        nlo, nhi = torch.where(go, mid + 1, nlo), torch.where(go, nhi, mid)
+    return torch.clamp(nlo - base, max=cap)
+
+
+def _bmat_probe_stacked(bmat: BMATState, ranks, q, sid):
+    S, cap = bmat.keys.shape
+    idx = torch.clamp(ranks, max=cap - 1)
+    g = sid * cap + idx
+    kk = bmat.keys.reshape(-1)[g]
+    vv = bmat.vals.reshape(-1)[g]
+    present = (kk == q) & (q != KEY_MAX)
+    alive = present & (vv != TOMBSTONE)
+    return present, alive, torch.where(alive, vv, 0), idx
+
+
+def _seg_add(S: int, sid, mask):
+    """Per-shard count of True entries (int64[S])."""
+    return torch.bincount(torch.where(mask, sid, S), minlength=S + 1)[:S]
+
+
+def _route_on_device(boundaries, q):
+    """Per-query shard id from the S-1 partition boundaries."""
+    return torch.searchsorted(boundaries, q, right=True)
+
+
+def slookup(state: UpLIFState, q, boundaries, codes=None, *,
+            static: UpLIFStatic):
+    """Stacked lookup: state leaves are [S, ...]; q is flat [N]. ``codes``
+    is the per-shard strategy index (None unless ``static.locate`` is a
+    mixed tuple — see ``_locate_stacked``)."""
+    sid = _route_on_device(boundaries, q)
+    j, _ = _locate_stacked(static, state.slots.keys, state.model, q, sid,
+                           codes)
+    _, alive, vals, _ = _probe_stacked(state.slots, j, q, sid)
+    ranks = _bmat_rank_stacked(static, state.bmat, q, sid, codes)
+    _, b_alive, b_vals, _ = _bmat_probe_stacked(state.bmat, ranks, q, sid)
+    b_alive = b_alive & ~alive
+    return alive | b_alive, torch.where(b_alive, b_vals, vals)
+
+
+def sdelete(state: UpLIFState, q, boundaries, codes=None, *,
+            static: UpLIFStatic):
+    """Stacked tombstone delete -> (state, hit [N])."""
+    S, cap = state.slots.keys.shape
+    sid = _route_on_device(boundaries, q)
+    canonical = ~_dedup_last_wins(q)
+
+    j, _ = _locate_stacked(static, state.slots.keys, state.model, q, sid,
+                           codes)
+    _, alive, _, jj = _probe_stacked(state.slots, j, q, sid)
+    once = alive & canonical
+    sv = _scatter_drop(state.slots.vals.reshape(-1), sid * cap + jj,
+                       TOMBSTONE, once).reshape(S, cap)
+
+    bcap = state.bmat.keys.shape[1]
+    ranks = _bmat_rank_stacked(static, state.bmat, q, sid, codes)
+    _, b_alive, _, bidx = _bmat_probe_stacked(state.bmat, ranks, q, sid)
+    b_alive = b_alive & ~alive
+    b_once = b_alive & canonical
+    bvals = _scatter_drop(state.bmat.vals.reshape(-1), sid * bcap + bidx,
+                          TOMBSTONE, b_once).reshape(S, bcap)
+
+    c = state.counters
+    counters = c._replace(
+        n_keys=c.n_keys - _seg_add(S, sid, once),
+        n_bmat_live=c.n_bmat_live - _seg_add(S, sid, b_once),
+    )
+    new_state = state._replace(
+        slots=state.slots._replace(vals=sv),
+        bmat=state.bmat._replace(vals=bvals),
+        counters=counters,
+    )
+    return new_state, alive | b_alive
+
+
+def srank(state: UpLIFState, q, boundaries, codes=None, *,
+          static: UpLIFStatic):
+    """Stacked shard-local adjusted rank (an O(cap) reduce per query)."""
+    sid = _route_on_device(boundaries, q)
+    live = state.slots.occ & (state.slots.vals != TOMBSTONE)
+    keys_q = state.slots.keys[sid]   # [N, cap] batched gather
+    live_q = live[sid]
+    arr_rank = (live_q & (keys_q < q[:, None])).sum(dim=1)
+    return arr_rank + _bmat_rank_stacked(static, state.bmat, q, sid, codes)
+
+
+def _merge_pending_stacked(static, bmat: BMATState, keys, vals, pending, sid,
+                           n_bmat_live, codes=None):
+    """Segmented (per-shard) BMAT merge over the flat [S*bcap] view; each
+    scatter aims its masked-out rows at one spare trailing element."""
+    S, bcap = bmat.keys.shape
+    dev = keys.device
+    qk = torch.where(pending, keys, KEY_MAX)
+    ranks = _bmat_rank_stacked(static, bmat, qk, sid, codes)
+    present, _, _, idx = _bmat_probe_stacked(bmat, ranks, qk, sid)
+    present = present & pending
+    bv_flat = bmat.vals.reshape(-1)
+    revived = present & (bv_flat[sid * bcap + idx] == TOMBSTONE)
+    new_vals = _scatter_drop(bv_flat, sid * bcap + idx, vals, present)
+    fresh = pending & ~present
+    cnt = _seg_add(S, sid, fresh)            # fresh keys per shard
+    shard_start = torch.cumsum(cnt, 0) - cnt  # exclusive prefix
+
+    # keys are range-partitioned, so sorting by key groups fresh entries by
+    # shard while ordering them within the shard
+    mk = torch.where(fresh, keys, KEY_MAX)
+    order = torch.argsort(mk, stable=True)
+    mk = mk[order]
+    mv = torch.where(fresh, vals, 0)[order]
+    fr = fresh[order]
+    sid_s = torch.where(fr, sid[order], 0)
+    r2 = _bmat_rank_stacked(static, bmat, mk, sid_s, codes)
+    g_idx = torch.cumsum(fr, 0) - 1          # global index among fresh
+    within = g_idx - shard_start[sid_s]
+    new_pos = r2 + within
+    tgt = torch.where(fr, sid_s * bcap + new_pos, S * bcap)
+
+    N = mk.shape[0]
+    mark = torch.zeros(S * bcap + 1, dtype=torch.int32, device=dev)
+    mark[tgt] = 1
+    new_at = torch.full((S * bcap + 1,), -1, dtype=torch.int32, device=dev)
+    new_at[tgt] = torch.arange(N, dtype=torch.int32, device=dev)
+    cum = torch.cumsum(mark[:-1], 0).reshape(S, bcap)
+    seg_base = torch.cat([cum.new_zeros(1), cum[:-1, -1]])
+    nb = cum - seg_base[:, None]
+    i = torch.arange(bcap, dtype=torch.int64, device=dev)[None, :]
+    new_at = new_at[:-1].reshape(S, bcap)
+    is_new = new_at >= 0
+    old_idx = torch.clamp(i - nb, 0, bcap - 1)
+    from_old = ~is_new & ((i - nb) < bmat.size[:, None])
+    pick = torch.clamp(new_at, 0, N - 1).to(torch.int64)
+    bbase = (torch.arange(S, dtype=torch.int64, device=dev) * bcap)[:, None]
+    g = bbase + old_idx
+    out_keys = torch.where(
+        is_new, mk[pick],
+        torch.where(from_old, bmat.keys.reshape(-1)[g], KEY_MAX),
+    )
+    out_vals = torch.where(is_new, mv[pick],
+                           torch.where(from_old, new_vals[g], 0))
+    out = BMATState(
+        keys=out_keys,
+        vals=out_vals,
+        fences=_make_fences_stacked(out_keys, static.fanout),
+        size=bmat.size + cnt.to(bmat.size.dtype),
+    )
+    n_over = _seg_add(S, sid, pending)
+    return out, n_bmat_live + _seg_add(S, sid, revived) + cnt, n_over
+
+
+def _make_fences_stacked(keys, fanout: int):
+    S = keys.shape[0]
+    tail = torch.full((S, 1), KEY_MAX, dtype=keys.dtype, device=keys.device)
+    return torch.cat([keys[:, ::fanout], tail], dim=1)
+
+
+def sinsert(state: UpLIFState, keys, vals, boundaries, codes=None, *,
+            static: UpLIFStatic):
+    """Stacked upsert: keys/vals are flat [N]. One flat program: the grid
+    windows of all shards tile the concatenated slot array (per-shard
+    capacities are W-aligned), so the global grid-segment accept and the
+    window writeback run as in ``insert`` on the [S*cap] view (copied once,
+    with one spare W-row)."""
+    W = static.window
+    S, cap = state.slots.keys.shape
+    if cap % W:
+        raise ValueError("slot capacity must be W-aligned (nullifier align)")
+    N = keys.shape[0]
+    total = S * cap
+    sid = _route_on_device(boundaries, keys)
+    nw_per = cap // W
+    sk_buf, sv_buf, so_buf = (
+        torch.cat([a.reshape(-1), a.reshape(-1)[-W:]]) for a in state.slots
+    )
+    sk, sv = sk_buf[:total], sv_buf[:total]
+    bmat = state.bmat
+    c = state.counters
+
+    pending = (keys != KEY_MAX) & ~_dedup_last_wins(keys)
+    n_keys, n_bmat_live = c.n_keys, c.n_bmat_live
+    n_inplace, min_gran = c.n_inplace, c.min_granularity
+
+    for rnd in range(max(1, static.insert_rounds)):
+        qk = torch.where(pending, keys, KEY_MAX)
+        j, icap = _locate_stacked(static, sk.view(S, cap), state.model, qk,
+                                  sid, codes)
+        if rnd == 0:
+            slots2 = SlotsState(keys=sk.view(S, cap), vals=sv.view(S, cap),
+                                occ=so_buf[:total].view(S, cap))
+            hit, alive, _, jj = _probe_stacked(slots2, j, qk, sid)
+            n_keys = n_keys + _seg_add(S, sid, hit & ~alive)
+            sv_buf[torch.where(hit, sid * cap + jj, total)] = vals
+            ranks = _bmat_rank_stacked(static, bmat, qk, sid, codes)
+            _, b_alive, _, bidx = _bmat_probe_stacked(bmat, ranks, qk, sid)
+            upd = b_alive & pending
+            bcap = bmat.keys.shape[1]
+            bvals = _scatter_drop(bmat.vals.reshape(-1), sid * bcap + bidx,
+                                  vals, upd).reshape(S, bcap)
+            bmat = bmat._replace(vals=bvals)
+            pending = pending & ~hit & ~upd
+            qk = torch.where(pending, keys, KEY_MAX)
+
+        # global grid-segment accept over the flat view
+        ins_slot = torch.clamp(torch.minimum(j + 1, icap), 0, cap - 1)
+        bucket = torch.where(pending, sid * nw_per + ins_slot // W,
+                             S * nw_per + 1)
+        order = torch.argsort(bucket, stable=True)
+        qs = qk[order]
+        vs = vals[order]
+        bs = bucket[order]
+        ps = pending[order]
+        first = torch.ones_like(ps)
+        first[1:] = bs[1:] != bs[:-1]
+        accept = ps & first
+        starts = torch.clamp(bs * W, 0, total - W)
+        can, failed_span = _inplace_window_insert(
+            sk_buf, sv_buf, so_buf, total, qs, vs, starts, accept, ps,
+            W, static.movement_k,
+        )
+        ok = can & ps
+        sid_w = torch.clamp(bs // nw_per, 0, S - 1)
+        ok_per = _seg_add(S, sid_w, ok)
+        n_inplace = n_inplace + ok_per
+        n_keys = n_keys + ok_per
+        span_per = torch.full((S + 1,), _I64_MAX, dtype=torch.int64,
+                              device=keys.device).scatter_reduce(
+            0, torch.where(failed_span < _I64_MAX, sid_w, S), failed_span,
+            reduce="amin",
+        )[:S]
+        min_gran = torch.minimum(min_gran, span_per)
+        done = torch.empty_like(ok)
+        done[order] = ok
+        pending = pending & ~done
+
+    bmat, n_bmat_live, n_over = _merge_pending_stacked(
+        static, bmat, keys, vals, pending, sid, n_bmat_live, codes
+    )
+    counters = Counters(
+        n_keys=n_keys,
+        n_bmat_live=n_bmat_live,
+        n_inplace=n_inplace,
+        n_overflow=c.n_overflow + n_over,
+        min_granularity=min_gran,
+    )
+    new_state = UpLIFState(
+        slots=SlotsState(keys=sk.view(S, cap), vals=sv.view(S, cap),
+                         occ=so_buf[:total].view(S, cap)),
+        model=state.model,
+        bmat=bmat,
+        counters=counters,
+    )
+    return new_state, InsertResult(pending=pending, n_overflow=n_over.sum())

@@ -1,9 +1,11 @@
-"""Gaussian mixture over the key domain (port of the bulk-load parts of
-``repro/core/gmm.py``).
+"""Gaussian mixture over the key domain (port of ``repro/core/gmm.py``,
+Section 3.4).
 
-The bulk load only needs the uniform prior and the host-side mixture CDF
-that sizes the Nullifier gaps (Eq. 6). The EM fit arrives with the tuning
-slice.
+UpLIF learns the incoming-update distribution D_update with a 1-D GMM and
+sizes the Nullifier gaps (Eq. 6) from its CDF. The mixture is host-side
+state: CPU float64 tensors. The EM fit (``fit_gmm``) runs in plain float64
+torch, as the JAX package runs it outside any Pallas kernel; the streaming
+forecaster's E-step is the K3 kernel (``repro_torch/kernels/gmm_estep.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import torch
 from repro_torch.core.types import GMMState
 
 _SQRT2 = float(np.sqrt(2.0))
+_LOG_SQRT_2PI = float(0.5 * np.log(2.0 * np.pi))
+_MIN_STD = 1e-9
 
 
 def init_gmm_uniform(lo: float, hi: float, n_components: int = 4) -> GMMState:
@@ -28,6 +32,59 @@ def init_gmm_uniform(lo: float, hi: float, n_components: int = 4) -> GMMState:
         means=torch.as_tensor(centers, dtype=torch.float64),
         stds=torch.as_tensor(stds, dtype=torch.float64),
     )
+
+
+def _log_prob(state: GMMState, x: torch.Tensor) -> torch.Tensor:
+    """(N, K) component log densities."""
+    z = (x[:, None] - state.means[None, :]) / state.stds[None, :]
+    return (
+        torch.log(state.weights)[None, :]
+        - 0.5 * z * z
+        - torch.log(state.stds)[None, :]
+        - _LOG_SQRT_2PI
+    )
+
+
+def e_step(state: GMMState, x: torch.Tensor):
+    """Responsibilities (N, K) and per-point log-likelihood (N,)."""
+    lp = _log_prob(state, x)
+    norm = torch.logsumexp(lp, dim=1, keepdim=True)
+    return torch.exp(lp - norm), norm[:, 0]
+
+
+def _em(state: GMMState, x: torch.Tensor, n_iters: int) -> GMMState:
+    for _ in range(n_iters):
+        resp, _ = e_step(state, x)
+        nk = resp.sum(dim=0) + 1e-12
+        means = (resp * x[:, None]).sum(dim=0) / nk
+        var = (resp * (x[:, None] - means[None, :]) ** 2).sum(dim=0) / nk
+        stds = torch.sqrt(torch.clamp(var, min=_MIN_STD))
+        weights = nk / x.shape[0]
+        state = GMMState(weights=weights, means=means, stds=stds)
+    return state
+
+
+def fit_gmm(
+    keys,
+    n_components: int = 4,
+    n_iters: int = 25,
+    seed: int = 0,
+) -> GMMState:
+    """Fit D_update from an observed update-key sample (float64 positions in
+    key space). k-quantile init keeps EM deterministic and restart-safe."""
+    x = torch.as_tensor(keys, dtype=torch.float64)
+    qs = torch.quantile(
+        x, torch.linspace(0.0, 1.0, n_components + 2, dtype=torch.float64)[1:-1]
+    )
+    span = torch.clamp(x.max() - x.min(), min=1.0)
+    init = GMMState(
+        weights=torch.full((n_components,), 1.0 / n_components,
+                           dtype=torch.float64),
+        means=qs,
+        stds=torch.full((n_components,), float(span / (2.0 * n_components)),
+                        dtype=torch.float64),
+    )
+    return _em(init, x, n_iters)
 
 
 def gmm_cdf_np(state: GMMState, x: np.ndarray) -> np.ndarray:

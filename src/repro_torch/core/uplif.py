@@ -6,8 +6,9 @@ shell owns only host concerns: the host-side bulk load, batch padding,
 BMAT capacity growth and the D_update reservoir.
 
 The index runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no GPU and no explicit CPU request, construction raises. Retrain, range
-queries and ``adjusted_predict`` arrive with later slices of the port.
+no GPU and no explicit CPU request, construction raises. Range queries,
+``adjusted_predict`` and ``retrain_subset`` arrive with later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.core import fops, shapes
 from repro_torch.core.bmat import BMAT, BPMAT
-from repro_torch.core.gmm import gmm_memory_bytes, init_gmm_uniform
+from repro_torch.core.gmm import fit_gmm, gmm_memory_bytes, init_gmm_uniform
 from repro_torch.core.nullifier import nullify
 from repro_torch.core.radix_spline import build_radix_spline, rs_memory_bytes
 from repro_torch.core.state import (
@@ -110,6 +111,7 @@ class UpLIF:
         # the usage counter stays on the host; structural counters live in
         # the device-resident Counters
         self.n_lookups = 0
+        self.n_retrains = 0
         self._counters = init_counters(device)
 
     @classmethod
@@ -129,17 +131,27 @@ class UpLIF:
         return self
 
     # -- construction --------------------------------------------------------
-    def _bulk_load(self, keys: np.ndarray, vals: np.ndarray, gmm: GMMState):
+    def _bulk_load(
+        self,
+        keys: np.ndarray,
+        vals: np.ndarray,
+        gmm: GMMState,
+        alpha_target: Optional[float] = None,
+        gap_quantize: str = "ceil",
+    ):
         cfg = self.cfg
         self.gmm = gmm
         res = nullify(
             keys,
             vals,
             gmm,
-            alpha_target=cfg.alpha_target,
+            alpha_target=(
+                cfg.alpha_target if alpha_target is None else alpha_target
+            ),
             d_max=cfg.d_max,
             tail_slack=max(64, cfg.window),
             align=cfg.window,  # grid windows require W-aligned capacity
+            quantize=gap_quantize,
             device=self.device,
         )
         self.slots = res.slots
@@ -285,6 +297,13 @@ class UpLIF:
         if len(self._reservoir) > cap:
             self._reservoir = self._rng.choice(self._reservoir, cap, replace=False)
 
+    def refreshed_gmm(self) -> GMMState:
+        """D_update refit from the reservoir (the prior until 64 samples)."""
+        if len(self._reservoir) >= 64:
+            return fit_gmm(self._reservoir, self.cfg.gmm_components)
+        return self.gmm
+
+    # -- tuning actions (Section 4.2) ------------------------------------------
     def extract_live(self) -> Tuple[np.ndarray, np.ndarray]:
         """All live (key, value) pairs — in-place + buffered, tombstones
         dropped — sorted by key, as numpy."""
@@ -298,16 +317,47 @@ class UpLIF:
         o = np.argsort(keys, kind="stable")
         return keys[o], vals[o]
 
-    # -- accounting (Sections 4.1 / 5.5) ---------------------------------------
-    def memory_bytes(self) -> int:
-        slots = sum(a.numel() * a.element_size() for a in self.slots)
-        return slots + self.index_bytes()
+    def retrain_full(
+        self,
+        gmm: Optional[GMMState] = None,
+        alpha_target: Optional[float] = None,
+        gap_quantize: str = "ceil",
+    ):
+        """Action: full retrain — flush the BMAT, drop tombstones,
+        re-nullify with ``gmm`` (an external D_update forecast) or the
+        reservoir refit, rebuild the spline. ``alpha_target`` overrides the
+        Eq. 7 gap budget (the router fits it to the capacity it has)."""
+        keys, vals = self.extract_live()
+        self.bmat = BMAT(
+            self.bmat.tree_type, self.cfg.bmat_fanout,
+            capacity=self.cfg.bmat_capacity, device=self.device,
+        )
+        self._bulk_load(
+            keys, vals,
+            gmm if gmm is not None else self.refreshed_gmm(),
+            alpha_target=alpha_target,
+            gap_quantize=gap_quantize,
+        )
+        self.n_retrains += 1
 
-    def index_bytes(self) -> int:
+    def retrain_subset(self, quantiles: int = 16) -> int:
+        raise NotImplementedError(
+            "retrain_subset arrives with the subset-retrain slice of the port"
+        )
+
+    def switch_bmat_type(self):
+        self.bmat.switch_type()
+
+    # -- accounting (Sections 4.1 / 5.5) ---------------------------------------
+    def memory_bytes(self, modeled: bool = False) -> int:
+        slots = sum(a.numel() * a.element_size() for a in self.slots)
+        return slots + self.index_bytes(modeled)
+
+    def index_bytes(self, modeled: bool = False) -> int:
         """Index-structure-only footprint (excludes the key/value payload
         slots — the §5.5 'index memory size' the paper reports)."""
         return (
-            self.bmat.memory_bytes()
+            self.bmat.memory_bytes(modeled)
             + rs_memory_bytes(self.rs_model)
             + gmm_memory_bytes(self.gmm)
         )

@@ -7,8 +7,9 @@ into one shared library with a plain ``extern "C"`` interface, loaded with
 ``build/repro_torch_kernels/`` at the repository root, and is keyed by a
 hash of the sources and flags, so an edited source rebuilds.
 
-The flags deliberately omit ``--use_fast_math``: the fused locate kernel
-needs IEEE division and no flush-to-zero to match its plain version.
+The flags deliberately omit ``--use_fast_math``: the fused locate and GMM
+E-step kernels need IEEE division, full-precision ``logf``/``expf`` and no
+flush-to-zero to match their plain versions.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_locate.cu", "bmat_rank.cu")
+SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -38,6 +39,8 @@ SIGNATURES = {
     "fused_locate_launch": [_P] * 9 + [_I] * 7 + [_P],
     # keys, fences, queries, sid (or null), out, n, cap, nf, fanout, stream
     "bmat_rank_launch": [_P] * 5 + [_I] * 4 + [_P],
+    # x, weights, means, stds, out, n, k, stream
+    "gmm_estep_launch": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 

@@ -4,14 +4,17 @@
 The JAX adapters split int64 keys into (hi, lo) halves, pad batches to the
 Pallas block sizes and pick interpret mode off the TPU. The port needs none
 of that: the kernels read int64 directly and mask their own ragged edge.
-What remains is the shard-id signature (so the stacked ops of the router
-reuse these unchanged), the shape guards, and the platform gate.
+What remains is the shard-id signature (the stacked ops of the router pass
+a shard id per query), the shape guards, the float32 casts of the E-step
+and the platform gate. The stacked and single-index ranks call K2
+(``kernels.bmat_rank.bmat_rank``) directly: it takes any BMAT size.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import bmat_rank as _rank
+from repro_torch.kernels import gmm_estep as _estep
 from repro_torch.kernels import spline_lookup as _locate
 
 MAX_F32_POSITIONS = 1 << 24  # f32 slot positions are exact below this
@@ -45,11 +48,6 @@ def locate_fusable(cap: int, n_knots: int) -> bool:
     return cap <= MAX_F32_POSITIONS and n_knots >= 2
 
 
-def rank_fusable(n_keys: int, n_fences: int) -> bool:
-    """The rank kernel takes any BMAT size on CUDA (no VMEM budget)."""
-    return True
-
-
 def fused_locate(
     table, spline_keys, spline_pos, shift, slot_keys, queries, sid=None,
     *, n_table: int, n_knots: int, cap: int, window: int, rs_iters: int,
@@ -67,13 +65,14 @@ def fused_locate(
     return j, start + (_locate.span_length(window, cap) - 1)
 
 
-def bmat_rank_fused(keys, fences, queries, sid=None, *, cap: int, nf: int,
-                    fanout: int):
-    """K2 adapter: shard-local searchsorted-left rank (int64); ``keys`` and
-    ``fences`` flat over the shard axis, ``sid`` per query (None for a
-    single BMAT)."""
-    return _rank.bmat_rank(keys, fences, queries, sid, cap=cap, nf=nf,
-                           fanout=fanout)
+def gmm_estep(x, weights, means, stds):
+    """K3 adapter: float32 responsibilities [N, K] of the mixture
+    (``weights``, ``means``, ``stds``) at the samples ``x``, with the JAX
+    adapter's float32 casts. No padding: the kernel masks its ragged
+    edge."""
+    f32 = torch.float32
+    return _estep.gmm_estep(x.to(f32), weights.to(f32), means.to(f32),
+                            stds.to(f32))
 
 
 def launch_counts() -> dict:
@@ -81,9 +80,11 @@ def launch_counts() -> dict:
     return {
         "fused_locate": _locate.fused_locate.launches,
         "bmat_rank": _rank.bmat_rank.launches,
+        "gmm_estep": _estep.gmm_estep.launches,
     }
 
 
 def reset_launch_counts() -> None:
     _locate.fused_locate.launches = 0
     _rank.bmat_rank.launches = 0
+    _estep.gmm_estep.launches = 0

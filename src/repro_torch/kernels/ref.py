@@ -1,10 +1,13 @@
-"""Plain torch key comparisons shared by the kernels' plain versions (port
-of ``key_leq``/``key_lt`` in ``repro/kernels/ref.py``).
+"""Plain torch versions shared by the kernels (port of parts of
+``repro/kernels/ref.py``).
 
 The JAX package compares keys as (hi:int32, lo:uint32) pairs because the
 TPU vector unit has no int64. Native int64 order is the same order for the
 non-negative key domain and for the KEY_MAX padding, so the port compares
 int64 keys directly, on the CPU and in the CUDA kernels alike.
+
+``gmm_estep_plain`` is the twin of ``ref.gmm_estep_ref``: K3's plain
+version, which the CPU path and the tests run.
 """
 from __future__ import annotations
 
@@ -19,3 +22,18 @@ def key_leq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def key_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a < b on int64 keys."""
     return a < b
+
+
+def gmm_estep_plain(
+    x: torch.Tensor,        # float32[N]
+    weights: torch.Tensor,  # float32[K]
+    means: torch.Tensor,    # float32[K]
+    stds: torch.Tensor,     # float32[K]
+) -> torch.Tensor:
+    """Responsibilities (N, K), numerically-stable softmax over components
+    (float32, the operations in the order the K3 kernel rounds them)."""
+    z = (x[:, None] - means[None, :]) / stds[None, :]
+    logp = torch.log(weights)[None, :] - 0.5 * z * z - torch.log(stds)[None, :]
+    m = logp.max(dim=1, keepdim=True).values
+    e = torch.exp(logp - m)
+    return e / e.sum(dim=1, keepdim=True)

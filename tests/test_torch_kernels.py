@@ -19,6 +19,7 @@ from repro.core.gmm import init_gmm_uniform as jax_init_gmm
 from repro.core.nullifier import nullify as jax_nullify
 from repro.core.radix_spline import build_radix_spline as jax_build_rs
 from repro.kernels.bmat_rank import OFF_Q_BLK, bmat_rank_offset_pallas
+from repro.kernels.gmm_estep import N_BLK as GMM_N_BLK, gmm_estep_pallas
 from repro.kernels.ops import split_key
 from repro.kernels.spline_lookup import LOC_Q_BLK, fused_locate_pallas
 from repro_torch.core import bmat as tbmat
@@ -28,6 +29,8 @@ from repro_torch.core.radix_spline import build_radix_spline
 from repro_torch.core.types import KEY_MAX
 from repro_torch.kernels import ops
 from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
+from repro_torch.kernels.gmm_estep import gmm_estep
+from repro_torch.kernels.ref import gmm_estep_plain
 from repro_torch.kernels.spline_lookup import fused_locate, fused_locate_plain
 from tests.conftest import make_keys
 
@@ -394,8 +397,47 @@ def test_guards():
     assert ops.locate_fusable(ops.MAX_F32_POSITIONS, 64)
     assert not ops.locate_fusable(ops.MAX_F32_POSITIONS + 1, 64)
     assert not ops.locate_fusable(1024, 1)
-    assert ops.rank_fusable(1 << 30, 1 << 26)
     assert ops.native_kernels("cuda") and not ops.native_kernels("cpu")
+    assert set(ops.launch_counts()) == {"fused_locate", "bmat_rank",
+                                        "gmm_estep"}
+
+
+# ---------------------------------------------------------------------------
+# K3: the GMM E-step
+# ---------------------------------------------------------------------------
+
+
+def _gmm_inputs(n, k):
+    """The sweep of ``tests/test_kernels.py``: samples around the means,
+    some far out, in float32."""
+    r = np.random.default_rng(n * k)
+    x = r.normal(0, 5, n).astype(np.float32)
+    w = np.full(k, 1.0 / k, np.float32)
+    mu = np.linspace(-4, 4, k).astype(np.float32)
+    sd = r.uniform(0.5, 2.0, k).astype(np.float32)
+    return x, w, mu, sd
+
+
+@pytest.mark.parametrize("n", [100, 2048, 5000])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_gmm_estep_plain_matches_pallas(n, k):
+    x, w, mu, sd = _gmm_inputs(n, k)
+    pad = -n % GMM_N_BLK
+    ref = np.asarray(gmm_estep_pallas(
+        jnp.asarray(np.concatenate([x, np.zeros(pad, np.float32)])),
+        jnp.asarray(w), jnp.asarray(mu), jnp.asarray(sd), interpret=True,
+    ))[:n]
+    t = torch.as_tensor
+    got = gmm_estep_plain(t(x), t(w), t(mu), t(sd)).numpy()
+    assert got.dtype == np.float32 and got.shape == (n, k)
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+    # the wrapper and the adapter (float64 in) take the plain version here
+    np.testing.assert_array_equal(gmm_estep(t(x), t(w), t(mu), t(sd)).numpy(),
+                                  got)
+    via_ops = ops.gmm_estep(t(x.astype(np.float64)), t(w.astype(np.float64)),
+                            t(mu), t(sd)).numpy()
+    np.testing.assert_array_equal(via_ops, got)
 
 
 # ---------------------------------------------------------------------------
@@ -432,3 +474,19 @@ def test_bmat_rank_cuda_matches_plain(cuda):
     got = bmat_rank(k, fe, q, sid, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, bmat_rank_plain(k, fe, q, sid, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [100, 2048, 5000, 8192])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_gmm_estep_cuda_matches_plain(cuda, n, k):
+    args = [torch.as_tensor(a, device=cuda) for a in _gmm_inputs(n, k)]
+    want = gmm_estep_plain(*args)
+    before = gmm_estep.launches
+    got = gmm_estep(*args)
+    torch.cuda.synchronize()
+    assert gmm_estep.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((got.sum(1) - 1).abs().max()) <= 1e-5
+    with pytest.raises(ValueError):
+        gmm_estep(args[0], *(torch.cat([a] * 3) for a in args[1:]))
