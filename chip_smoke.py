@@ -14,9 +14,17 @@ Imports only the port (``src/repro_torch``) and runs:
                 serves the four read/write mixes of ``WORKLOADS`` in 4096-op
                 waves and a delete phase; every read must be found with value
                 key + 1, deleted keys must miss, and K1 and K2's launch counts
-                must grow in every phase; then ``torch.profiler`` over 20
-                write-heavy waves gives the device's busy and idle share;
-  4. main path, router + tuner — bulk-loads the same 4M keys into
+                must grow in every phase;
+  4. range path, single index — on the same index after its deletes, 20
+                ``range_query_batch`` calls of 1024 ranges (span 1e-4 of the
+                domain, ``max_out`` 512, as ``benchmarks/bench_range.py``)
+                and 20 ``adjusted_predict`` batches of 4096 queries: every
+                row sorted, inside its range, value key + 1, no deleted key,
+                whole where the sorted oracle has at most 256 live keys; the
+                rank within the BMAT's tombstones of the oracle's rank; then
+                ``torch.profiler`` over 20 write-heavy waves gives the
+                device's busy and idle share;
+  5. main path, router + tuner — bulk-loads the same 4M keys into
                 ``ShardedUpLIF(n_shards=4)``, attaches the synchronous
                 ``SelfTuner`` and serves the four mixes (``observe_inserts``
                 and ``after_wave`` every wave, as ``examples/serve_index.py``
@@ -26,42 +34,73 @@ Imports only the port (``src/repro_torch``) and runs:
                 GMM), split-shard and merge-shards through the scheduler's
                 dispatch and a BMAT switch, each followed by a checked read
                 wave; the live contents must equal the loaded plus inserted
-                keys; a profile of 20 write-heavy waves with the tuner;
-  5. kernels  — each kernel against its plain torch version on the card: K1
+                keys;
+  6. range path, router — the range phase of 4 on the router (a sixteenth
+                of the ranges straddle each shard boundary; each batch's
+                latency goes to ``tuner.observe_range``), where
+                ``adjusted_predict`` on 4096-query batches over 4 x 2^22
+                slots must equal the oracle's searchsorted-left rank;
+  7. mixed waves — 100 ``MixedWave``s through ``apply_wave`` (1024 inserts,
+                256 deletes, 2048 lookups, 64 ranges, pow2 pad widths): every
+                wave must read its own writes; the live contents must then
+                equal the loaded plus inserted less deleted keys; a profile
+                of 20 write-heavy waves with the tuner;
+  8. kernels  — each kernel against its plain torch version on the card: K1
                 and K2 on the main path's final state and on an fb index
                 (radix shift 36), with hits, misses and above-domain keys, K1
                 also in its float64-interpolation mode; K3 on unit-domain
                 samples (N in 100..8192, K in 2, 4, 8) and on the
                 forecaster's own inputs;
-  6. large index — all 8M wikits keys, a capacity above the float32
+  9. kernel-level API — on the wikits index (shift 15) and the fb index
+                (shift 36): ``ops.spline_lookup`` (K5) on a 4096-query mix,
+                ``ops.route_and_search`` (K4) over the index's slot array with
+                those predictions, ``ops.bmat_rank`` over the slot keys (above
+                the reference's tiled-route size, so K4 in passes, with a
+                duplicated batch that needs four); K5 and K4 against their
+                plain versions (zero error), ``j`` and the ranks against
+                ``torch.searchsorted``;
+ 10. large index — all 8M wikits keys, a capacity above the float32
                 position bound: lookups and an insert wave go through K1's
                 float64 mode, which must equal the spline path;
-  7. whole path — short op tapes through the port on the card and on the
-                CPU, for the single index and for the router with scripted
-                maintenance (split, merge, shard retrain with a fixed GMM,
-                BMAT switch, presize, a mixed locate assignment): results,
-                overflow counts, boundaries and the slot and BMAT arrays
-                must be identical;
-  8. timing   — K1 and K2 on a main-path batch (one mixed wave's 2048 reads
+ 11. whole path — short op tapes through the port on the card and on the
+                CPU, for the single index (with range rows and adjusted ranks
+                after every op) and for the router with scripted maintenance
+                (split, merge, shard retrain with a fixed GMM, BMAT switch,
+                presize, a mixed locate assignment, ranges, adjusted ranks
+                and three mixed waves): results, overflow counts, boundaries
+                and the slot and BMAT arrays must be identical;
+ 12. timing   — K1 and K2 on a main-path batch (one mixed wave's 2048 reads
                 and 2048 insert keys), K3 on one write-heavy router wave's
-                2048 insert keys, warmed up: each kernel's device time per
-                launch (``ms``, from the profiler's device events), the time
-                per call of the entry the index calls (the ``ops`` adapter
-                for K1 and K3, the wrapper for K2), between CUDA events
-                (``call_ms``, host dispatch included), its plain
+                2048 insert keys, K5 on a 4096-query mix on each side of
+                shift 32, K4 in ``route_and_search`` at that batch and in one
+                pass of the tiled rank, warmed up: each kernel's device time
+                per launch (``ms``, from the profiler's device events), the
+                time per call of the entry the index calls (the ``ops``
+                adapter for K1, K3, K4 and K5, the wrapper for K2), between
+                CUDA events (``call_ms``, host dispatch included), its plain
                 version's and a one-call PyTorch yardstick's device time
-                (none exists for K3), and the bound, printed as one JSON line.
+                (none exists for K3 and K5), and the bound, printed as one
+                JSON line; and the tiled rank route against K2 on the same
+                10.5M-key buffer.
+
+Each path's launch counts are reset just before it and read just after;
+the kernels line gives them per path (``launches_by_path``) and summed.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before it, as does a machine without CUDA.
 
 Bound (``bound_ms``): the larger of bytes over the H100's 3.35 TB/s and
-float32 operations over 67 TFLOP/s. For K1 and K2, bytes count each element
-the batch needs once: the queries and outputs, plus the distinct table,
-knot, position, slot, fence and node elements that the plain version reads
-on this batch (recorded while it runs), at their stored widths. For K3,
-bytes are the samples, the parameters and the [N, K] output once, and the
-operations are 11 per sample and component.
+operations over the 67 TFLOP/s float32 rate (the non-tensor-core rate, also
+used for K4's int64 compares, which the table of peaks does not list). For
+K1, K2 and K5, bytes count each element the batch needs once: the queries
+and outputs, plus the distinct table, knot, position, slot, fence and node
+elements that the plain version reads on this batch (recorded while it
+runs), at their stored widths. For K3, bytes are the samples, the
+parameters and the [N, K] output once, and the operations are 11 per sample
+and component. For K4, bytes are the queries, the outputs, the segment
+arrays and every key of each tile a query routes to (the function counts
+over the whole tile), and the operations are 2048 compares per query the
+pass searches.
 """
 from __future__ import annotations
 
@@ -88,9 +127,21 @@ FB_KEYS = 4_000_000
 K1_SOURCE = "src/repro_torch/kernels/csrc/fused_locate.cu"
 K2_SOURCE = "src/repro_torch/kernels/csrc/bmat_rank.cu"
 K3_SOURCE = "src/repro_torch/kernels/csrc/gmm_estep.cu"
+K4_SOURCE = "src/repro_torch/kernels/csrc/tile_search.cu"
+K5_SOURCE = "src/repro_torch/kernels/csrc/spline_lookup.cu"
 K1_REPLACES = "src/repro/kernels/spline_lookup.py:208"
 K2_REPLACES = "src/repro/kernels/bmat_rank.py:70"
 K3_REPLACES = "src/repro/kernels/gmm_estep.py:28"
+K4_REPLACES = "src/repro/kernels/tile_search.py:33"
+K5_REPLACES = "src/repro/kernels/spline_lookup.py:74"
+RANGE_BATCHES = 20          # range_query_batch calls per range phase
+RANGE_BATCH = 1024          # ranges per call (benchmarks/bench_range.py)
+RANGE_MAX_OUT = 512
+RANGE_SPAN = 1e-4           # of the key domain
+RANGE_WHOLE = 256           # ranges with at most this many live keys: whole
+RANK_BATCHES = 20           # adjusted_predict calls of BATCH queries
+MIXED_WAVES = 100
+WAVE_SPAN = 1e-5            # range span inside a mixed wave
 K3_OPS = 11          # float32 operations per sample and component
 K3_TOL = 1e-5        # the tolerance of tests/test_kernels.py
 
@@ -126,11 +177,13 @@ def run_main_path(torch, index, runner, waves: int, delete_waves: int):
     from repro_torch.data import WORKLOADS
     from repro_torch.kernels import ops
 
+    inserted = []
     for _ in range(2):  # warm-up waves, checked but not timed or counted
         reads, ins = runner.next_batch(0.5)
         f, v = index.lookup(reads)
         require(f.all() and np.array_equal(v, reads + 1), "warm-up reads")
         index.insert(ins, ins + 1)
+        inserted.append(ins)
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
@@ -140,6 +193,7 @@ def run_main_path(torch, index, runner, waves: int, delete_waves: int):
         lat, n_ops, n_reads = [], 0, 0
         for _ in range(waves):
             reads, ins = runner.next_batch(rate)
+            inserted.append(ins)
             t0 = time.perf_counter()
             if len(reads):
                 found, vals = index.lookup(reads)
@@ -175,7 +229,10 @@ def run_main_path(torch, index, runner, waves: int, delete_waves: int):
     ))
     found, _ = index.lookup(victims[:BATCH])
     require(not found.any(), "deleted keys are still found")
-    return phases, ops.launch_counts()
+    counts = ops.launch_counts()
+    live = np.setdiff1d(np.union1d(runner.init_keys, np.concatenate(inserted)),
+                        victims)
+    return phases, counts, live
 
 
 def profile_waves(torch, index, runner, rate: float, waves: int,
@@ -392,10 +449,12 @@ def router_maintenance(torch, router, tuner, runner, inserted):
     return report
 
 
-def check_router_contents(router, runner, inserted):
-    """The router's live contents equal the loaded plus inserted keys, each
-    with value key + 1."""
+def check_router_contents(router, runner, inserted, deleted=None):
+    """The router's live contents equal the loaded plus inserted keys (less
+    ``deleted``), each with value key + 1. Returns them, sorted."""
     want = np.unique(np.concatenate([runner.init_keys] + inserted))
+    if deleted is not None:
+        want = np.setdiff1d(want, deleted)
     parts = [router._unstack_shell(s).extract_live()
              for s in range(router.n_shards)]
     keys = np.concatenate([k for k, _ in parts])
@@ -404,8 +463,9 @@ def check_router_contents(router, runner, inserted):
             f"router contents: {len(keys)} live keys, expected {len(want)}")
     require(np.array_equal(vals, keys + 1), "router contents: wrong values")
     require(router.size == len(want), "router size differs from its contents")
-    print(f"router contents: {len(keys)} live keys == loaded + inserted",
-          flush=True)
+    print(f"router contents: {len(keys)} live keys == loaded + inserted"
+          + (" - deleted" if deleted is not None else ""), flush=True)
+    return want
 
 
 # ---------------------------------------------------------------------------
@@ -695,6 +755,368 @@ def k3_timing(torch, fc, ins):
 
 
 # ---------------------------------------------------------------------------
+# the range path: range scans, the adjusted rank, mixed waves
+# ---------------------------------------------------------------------------
+
+
+def check_ranges(lo, hi, ks, vs, live, label, max_out=RANGE_MAX_OUT):
+    """Every row is strictly increasing, inside [lo, hi], with value
+    key + 1, and holds only live keys (so no deleted one); a range whose
+    live count in the sorted oracle ``live`` is at most RANGE_WHOLE comes
+    back whole. Returns the number of ranges checked whole and the number
+    that came back as the first min(live count, ``max_out``) live keys of
+    their range (counted, not required: a row may stop short where the
+    scan's slot window ends)."""
+    a = np.searchsorted(live, lo, "left")
+    b = np.searchsorted(live, hi, "right")
+    n_whole = n_prefix = 0
+    for i, (k, v) in enumerate(zip(ks, vs)):
+        require(np.all(k[1:] > k[:-1]), f"{label}: range {i} not sorted")
+        require(len(k) == 0 or (k[0] >= lo[i] and k[-1] <= hi[i]),
+                f"{label}: range {i} outside [lo, hi]")
+        require(np.array_equal(v, k + 1), f"{label}: range {i} values")
+        if b[i] - a[i] <= RANGE_WHOLE:
+            require(np.array_equal(k, live[a[i]:b[i]]),
+                    f"{label}: range {i} is not whole")
+            n_whole += 1
+        n_prefix += int(len(k) == min(b[i] - a[i], max_out)
+                        and np.array_equal(k, live[a[i]:a[i] + len(k)]))
+    got = np.concatenate(ks)
+    idx = np.clip(np.searchsorted(live, got), 0, len(live) - 1)
+    require(np.array_equal(live[idx], got),
+            f"{label}: a range returned a key that is not live")
+    return n_whole, n_prefix
+
+
+def _lat_report(lat, n_items, unit):
+    lat_ms = np.asarray(lat) * 1e3
+    return {"batches": len(lat), f"{unit}_per_s": n_items / float(np.sum(lat)),
+            "ms_p50": float(np.percentile(lat_ms, 50)),
+            "ms_p99": float(np.percentile(lat_ms, 99))}
+
+
+def run_range_path(torch, index, live, label, boundaries=(), tuner=None,
+                   tombstones=0):
+    """RANGE_BATCHES calls of RANGE_BATCH ranges (span RANGE_SPAN of the
+    domain, ``max_out`` RANGE_MAX_OUT; a sixteenth of them straddle each
+    of ``boundaries``) through ``range_query_batch``, then RANK_BATCHES
+    batches of BATCH queries through ``adjusted_predict``. The launch
+    counts are reset just before and read just after. The rank must lie
+    within ``tombstones`` (deleted BMAT entries, which the bias r(k) still
+    counts) above the oracle's searchsorted-left rank; with none it must
+    equal it. Returns (report, launch counts)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(4)
+    k_lo, k_hi = int(live[0]), int(live[-1])
+    span = int((k_hi - k_lo) * RANGE_SPAN)
+
+    def batch():
+        lo = rng.integers(k_lo, k_hi, RANGE_BATCH)
+        for i, cut in enumerate(boundaries):
+            m = RANGE_BATCH // 16
+            lo[i * m:(i + 1) * m] = cut - rng.integers(0, span, m)
+        return lo, lo + span
+
+    lo, hi = batch()  # warm-up call, checked but not timed or counted
+    check_ranges(lo, hi, *index.range_query_batch(lo, hi, RANGE_MAX_OUT),
+                 live, f"{label} warm-up")
+    index.adjusted_predict(live[:BATCH])
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    lat, n_whole, n_prefix, n_keys = [], 0, 0, 0
+    for _ in range(RANGE_BATCHES):
+        lo, hi = batch()
+        t0 = time.perf_counter()
+        ks, vs = index.range_query_batch(lo, hi, RANGE_MAX_OUT)
+        dt = time.perf_counter() - t0  # rows come back as numpy: synced
+        lat.append(dt)
+        if tuner is not None:
+            tuner.observe_range(len(lo), dt)
+        whole, prefix = check_ranges(lo, hi, ks, vs, live, f"{label} ranges")
+        n_whole += whole
+        n_prefix += prefix
+        n_keys += sum(len(k) for k in ks)
+    range_counts = ops.launch_counts()
+    rank_lat = []
+    for _ in range(RANK_BATCHES):
+        q = np.concatenate([rng.choice(live, BATCH * 3 // 4),
+                            rng.integers(k_lo, k_hi, BATCH // 4)])
+        t0 = time.perf_counter()
+        r = index.adjusted_predict(q)
+        rank_lat.append(time.perf_counter() - t0)
+        exact = np.searchsorted(live, q, "left")
+        require(np.all(r >= exact) and np.all(r <= exact + tombstones),
+                f"{label}: adjusted_predict off the oracle by "
+                f"{int(np.abs(r - exact).max())} (tombstones {tombstones})")
+    counts = ops.launch_counts()
+    rank_counts = {k: counts[k] - range_counts[k] for k in counts}
+    require(range_counts["fused_locate"] > 0 and range_counts["bmat_rank"] > 0,
+            f"{label}: the range scans did not launch K1 and K2: "
+            f"{range_counts}")
+    require(rank_counts["bmat_rank"] > 0,
+            f"{label}: adjusted_predict did not launch K2: {rank_counts}")
+    rep = {
+        "phase": label,
+        "ranges": {**_lat_report(lat, RANGE_BATCHES * RANGE_BATCH, "ranges"),
+                   "ranges_whole": n_whole, "ranges_prefix": n_prefix,
+                   "keys_returned": n_keys,
+                   "launches": range_counts},
+        "adjusted_predict": {**_lat_report(rank_lat, RANK_BATCHES * BATCH,
+                                           "queries"),
+                             "exact": tombstones == 0,
+                             "launches": rank_counts},
+        "device_mem_mib": torch.cuda.memory_allocated() / 2**20,
+    }
+    print("phase " + json.dumps(rep), flush=True)
+    return rep, counts
+
+
+def run_mixed_waves(torch, router, runner, live, pool, n_waves):
+    """``n_waves`` MixedWaves through ``apply_wave``, each with 1024 fresh
+    inserts, 256 deletes (192 of the earlier inserts ``pool``, 64 of its
+    own), 2048
+    lookups (its own inserts and deletes and 768 known keys) and 64 ranges
+    over its inserts, padded to ``padded_width(n, 256, 2048)``. Every wave
+    must read its own writes. Returns (report, launch counts, the keys
+    inserted and deleted)."""
+    from repro_torch.core.shapes import padded_width
+    from repro_torch.core.sharded import MixedWave
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(6)
+    span = int((int(live[-1]) - int(live[0])) * WAVE_SPAN)
+    earlier = rng.permutation(pool)[:192 * n_waves]
+    deleted, added = [], []
+    lat = []
+    ops.reset_launch_counts()
+    for w in range(n_waves):
+        reads, ins = runner.next_batch(0.25)  # 3072 reads, 1024 inserts
+        dels = np.concatenate([earlier[w * 192:(w + 1) * 192], ins[:64]])
+        look = np.concatenate([ins, dels, reads[:768]])
+        lo = np.sort(rng.choice(ins, 64))
+        wave = MixedWave(
+            insert_keys=ins, insert_vals=ins + 1, delete_keys=dels,
+            lookup_keys=look, range_lo=lo, range_hi=lo + span,
+            pad_insert=padded_width(len(ins), 256, 2048),
+            pad_delete=padded_width(len(dels), 256, 2048),
+            pad_lookup=padded_width(len(look), 256, 2048),
+        )
+        t0 = time.perf_counter()
+        res = router.apply_wave(wave)
+        lat.append(time.perf_counter() - t0)  # results are numpy: synced
+        deleted.append(dels)
+        added.append(ins)
+        gone = np.concatenate(deleted)
+        want = ~np.isin(look, gone)
+        require(np.array_equal(res.lookup_found, want),
+                f"wave {w}: read-your-writes: {int((res.lookup_found != want).sum())} "
+                "lookups disagree")
+        require(np.array_equal(res.lookup_vals[want], look[want] + 1),
+                f"wave {w}: wrong values")
+        require(res.delete_hit.all(), f"wave {w}: a delete missed")
+        for a, b, k, v in zip(lo, lo + span, res.range_keys, res.range_vals):
+            mine = ins[64:][(ins[64:] >= a) & (ins[64:] <= b)]
+            require(np.array_equal(v, k + 1) and np.all(k[1:] > k[:-1]),
+                    f"wave {w}: a range row is wrong")
+            require(not np.isin(k, gone).any(),
+                    f"wave {w}: a range returned a deleted key")
+            if len(k) < wave.range_max_out:
+                require(np.isin(mine, k).all(),
+                        f"wave {w}: a range misses the wave's own insert")
+    counts = ops.launch_counts()
+    require(counts["fused_locate"] > 0 and counts["bmat_rank"] > 0,
+            f"mixed waves: K1 and K2 were not launched: {counts}")
+    rep = {"phase": "router mixed waves", "waves": n_waves,
+           "ops_per_wave": wave.n_ops,
+           "waves_per_s": n_waves / float(np.sum(lat)),
+           "mops_per_s": n_waves * wave.n_ops / float(np.sum(lat)) / 1e6,
+           "wave_ms_p50": float(np.percentile(np.asarray(lat) * 1e3, 50)),
+           "wave_ms_p99": float(np.percentile(np.asarray(lat) * 1e3, 99)),
+           "launches_per_wave": {k: v / n_waves for k, v in counts.items()},
+           "device_mem_mib": torch.cuda.memory_allocated() / 2**20}
+    print("phase " + json.dumps(rep), flush=True)
+    return rep, counts, added, np.concatenate(deleted)
+
+
+# ---------------------------------------------------------------------------
+# the kernel-level predict / search / rank API (K5, K4)
+# ---------------------------------------------------------------------------
+
+
+def _fences(torch, keys, fanout=16):
+    from repro_torch.core.types import KEY_MAX
+
+    return torch.cat([keys[::fanout], keys.new_full((1,), KEY_MAX)])
+
+
+def api_batches(torch, index, live, seed):
+    """The kernel-level API's inputs on one index: a BATCH-query mix, and
+    for the rank the same mix plus duplicated runs that overflow one
+    tile's query block (four passes)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    q = query_mix(rng, live)
+    dup = np.concatenate([np.full(3 * ops.Q_BLK + 5, live[77]),
+                          np.full(ops.Q_BLK + 1, live[-5])])
+    dev = index.device
+    return (torch.as_tensor(q, device=dev),
+            torch.as_tensor(np.concatenate([q, dup]), device=dev))
+
+
+def run_kernel_api(torch, index, live, label, seed):
+    """``ops.spline_lookup`` (K5) on a BATCH-query mix, ``ops.
+    route_and_search`` (K4) over the index's own slot array with those
+    predictions, and ``ops.bmat_rank`` over the slot keys (above the
+    reference's tiled-route size, so K4 in passes), counted from zero. Then,
+    uncounted: K5 and K4 against their plain versions (zero error), ``j``
+    against ``torch.searchsorted`` wherever the prediction lands in the
+    right tile, the ranks against ``torch.searchsorted``. Returns (K4 max
+    abs error, K5 max abs error, launch counts, the number of rank
+    passes)."""
+    from repro_torch.core.types import KEY_MAX
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spline_lookup import spline_lookup_plain
+    from repro_torch.kernels.tile_search import tile_search, tile_search_plain
+
+    m, st = index.rs_model, index.rs_static
+    sk = index.slots.keys
+    fences = _fences(torch, sk)
+    q, qq = api_batches(torch, index, live, seed)
+    require(sk.shape[0] > ops.TILED_RANK_ABOVE,
+            f"{label}: slot array below the tiled-rank size")
+    ops.reset_launch_counts()
+    p = ops.spline_lookup(m.table, m.spline_keys, m.spline_pos, m.shift, q,
+                          st.n_search_iters)
+    j, ok = ops.route_and_search(sk, q, p)
+    r = ops.bmat_rank(sk, fences, qq, 16)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_pass = ops._rank_tiles(sk, qq)[3]
+    require(counts["spline_lookup"] == 1 and counts["tile_search"] == 1 + n_pass,
+            f"{label}: K5 / K4 launches {counts} (rank passes {n_pass})")
+
+    shift = int(m.shift)
+    p0 = spline_lookup_plain(m.table, m.spline_keys, m.spline_pos, q,
+                             shift=shift, n_iters=st.n_search_iters)
+    k5_err = float((p - p0).abs().max())
+    require(torch.equal(p.view(torch.int32), p0.view(torch.int32)),
+            f"{label}: K5 differs from its plain version")
+    k4_err = 0
+    for k4_in, passes in ((ops._route_tiles(sk, q, p)[3], 1),
+                          ops._rank_tiles(sk, qq)[2:]):
+        for pas in range(passes):
+            got = tile_search(sk, *k4_in, pass_idx=pas)
+            want = tile_search_plain(sk, *k4_in, pass_idx=pas)
+            k4_err = max(k4_err, int((got - want).abs().max()))
+    require(k4_err == 0, f"{label}: K4 differs from its plain version")
+    right = torch.searchsorted(sk, q, right=True) - 1
+    tile = torch.clamp(p.to(torch.int64) // ops.TILE, 0,
+                       (sk.shape[0] - 1) // ops.TILE)
+    inside = (ok & (right >= tile * ops.TILE - 1)
+              & (right < (tile + 1) * ops.TILE) & (q != KEY_MAX))
+    require(torch.equal(j[inside], right[inside]),
+            f"{label}: route_and_search differs from searchsorted")
+    require(torch.equal(r.to(torch.int64), torch.searchsorted(sk, qq)),
+            f"{label}: the tiled rank is not exact")
+    print(f"kernel API[{label}]: shift {shift}, {q.shape[0]} queries, "
+          f"{int(ok.sum())} ok, {int(inside.sum())} in the right tile and "
+          f"equal to searchsorted; rank of {qq.shape[0]} queries exact in "
+          f"{n_pass} passes; K5 bits and K4 equal their plain versions; "
+          f"launches {counts}", flush=True)
+    return k4_err, k5_err, counts, n_pass
+
+
+def api_timing(torch, wikits, fb, wikits_live, fb_live):
+    """K5 at a BATCH-query mix on both sides of shift 32, K4 in
+    ``route_and_search`` at that batch (the kernel's own launch) and in one
+    pass of the tiled rank, and the tiled rank route against K2 on the same
+    slot-key buffer."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bmat_rank import bmat_rank
+    from repro_torch.kernels.spline_lookup import (
+        spline_lookup, spline_lookup_plain,
+    )
+    from repro_torch.kernels.tile_search import tile_search, tile_search_plain
+
+    k5 = {}
+    for label, index, live, seed in (("wikits", wikits, wikits_live, 21),
+                                     ("fb", fb, fb_live, 22)):
+        m, st = index.rs_model, index.rs_static
+        q, _ = api_batches(torch, index, live, seed)
+        kw = dict(shift=int(m.shift), n_iters=st.n_search_iters)
+        args = (m.table, m.spline_keys, m.spline_pos, q)
+        n = q.shape[0]
+        n_bytes = n * (8 + 4) + read_footprint(
+            torch, spline_lookup_plain, args, kw,
+            dict(table=m.table, spline_keys=m.spline_keys,
+                 spline_pos=m.spline_pos))
+        k5[label] = dict(
+            shift=kw["shift"],
+            ms=device_ms(torch, lambda: spline_lookup(*args, **kw), 200),
+            call_ms=call_ms(torch, lambda: ops.spline_lookup(
+                m.table, m.spline_keys, m.spline_pos, m.shift, q,
+                st.n_search_iters), 200),
+            plain_ms=device_ms(torch, lambda: spline_lookup_plain(
+                *args, **kw), 10),
+            library_ms=None, bytes=n_bytes,
+            bound=bound_ms(n_bytes, n * 12),
+        )
+
+    m, st = wikits.rs_model, wikits.rs_static
+    sk = wikits.slots.keys
+    cap = sk.shape[0]
+    q, qq = api_batches(torch, wikits, wikits_live, 21)
+    p = ops.spline_lookup(m.table, m.spline_keys, m.spline_pos, m.shift, q,
+                          st.n_search_iters)
+
+    def k4_bytes(qs, seg_tile, seg_start, n_in_pass):
+        tiles = torch.unique(seg_tile[seg_start[:-1] < qs.shape[0]])
+        keys = int(torch.clamp(cap - tiles * ops.TILE, max=ops.TILE).sum())
+        return (qs.shape[0] * 8 + n_in_pass * 4 + keys * 8
+                + (2 * seg_tile.shape[0] + 1) * 8)
+
+    route = ops._route_tiles(sk, q, p)[3]
+    n_ok = int(torch.clamp(route[2][1:] - route[2][:-1], max=ops.Q_BLK).sum())
+    route_bytes = k4_bytes(*route, n_ok)
+    fences = _fences(torch, sk)
+    rq, rtile, rstart = ops._rank_tiles(sk, q)[2]
+    n_ok_r = int(torch.clamp(rstart[1:] - rstart[:-1], max=ops.Q_BLK).sum())
+    rank_bytes = k4_bytes(rq, rtile, rstart, n_ok_r)
+    k4 = dict(
+        ms=device_ms(torch, lambda: tile_search(sk, *route, pass_idx=0), 200),
+        call_ms=call_ms(torch, lambda: ops.route_and_search(sk, q, p), 200),
+        plain_ms=device_ms(torch, lambda: tile_search_plain(
+            sk, *route, pass_idx=0), 5),
+        library_ms=device_ms(torch, lambda: torch.searchsorted(
+            sk, q, right=True) - 1, 200),
+        bytes=route_bytes,
+        bound=bound_ms(route_bytes, n_ok * ops.TILE),
+        rank_pass=dict(
+            ms=device_ms(torch, lambda: tile_search(
+                sk, rq, rtile, rstart, pass_idx=0), 200),
+            bytes=rank_bytes,
+            bound=bound_ms(rank_bytes, n_ok_r * ops.TILE),
+        ),
+    )
+    routes = {
+        "buffer_keys": cap, "queries": q.shape[0],
+        "tiled_call_ms": call_ms(torch, lambda: ops.bmat_rank(
+            sk, fences, q, 16), 50),
+        "tiled_device_ms": device_ms(torch, lambda: ops.bmat_rank(
+            sk, fences, q, 16), 50),
+        "k2_ms": device_ms(torch, lambda: bmat_rank(
+            sk, fences, q, cap=cap, nf=fences.shape[0], fanout=16), 200),
+        "k2_call_ms": call_ms(torch, lambda: bmat_rank(
+            sk, fences, q, cap=cap, nf=fences.shape[0], fanout=16), 200),
+    }
+    print("rank routes " + json.dumps(routes), flush=True)
+    return k4, k5, routes
+
+
+# ---------------------------------------------------------------------------
 # an index above the float32 position bound
 # ---------------------------------------------------------------------------
 
@@ -773,10 +1195,36 @@ def tape(seed: int = 5, n: int = 40_000):
     return base, ops_tape, probes
 
 
+def tape_ranges(base, n=200, seed=7):
+    """Ranges over a tape's keys: spans from one to a few thousand keys,
+    one past the domain, one over everything."""
+    from repro_torch.core.types import KEY_MAX
+
+    r = np.random.default_rng(seed)
+    lo = np.sort(r.choice(base, n))
+    hi = lo + r.integers(1, (int(base[-1]) - int(base[0])) // 200, n)
+    return (np.concatenate([lo, [int(base[-1]) + 1, 0]]),
+            np.concatenate([hi, [KEY_MAX, KEY_MAX]]))
+
+
+def _rows(rows):
+    """Range rows as two flat arrays (keys and vals) and the row lengths."""
+    ks, vs = rows
+    return [np.concatenate(ks), np.concatenate(vs),
+            np.asarray([len(k) for k in ks])]
+
+
+def _same_outputs(a, b, what):
+    require(len(a) == len(b), f"{what}: {len(a)} outputs against {len(b)}")
+    for x, y in zip(a, b):
+        require(np.array_equal(x, y), what)
+
+
 def card_vs_cpu(torch):
     from repro_torch.core import UpLIF, UpLIFConfig
 
     base, ops_tape, probes = tape()
+    lo, hi = tape_ranges(base)
     cfg = UpLIFConfig(locate="fused")
     results = {}
     for dev in ("cuda", "cpu"):
@@ -788,16 +1236,25 @@ def card_vs_cpu(torch):
             else:
                 out.append(idx.delete(op[1]))
             out.extend(idx.lookup(probes))
+            out.extend(_rows(idx.range_query_batch(lo, hi, max_out=256)))
+            out.append(idx.adjusted_predict(probes))
         out.extend(idx.extract_live())
         arrays = [a.cpu().numpy() for a in (*idx.slots, idx.bmat.state.keys,
                                             idx.bmat.state.vals)]
         results[dev] = (out, arrays)
-    for a, b in zip(results["cuda"][0], results["cpu"][0]):
-        require(np.array_equal(a, b), "card and CPU differ on the op tape")
-    for a, b in zip(results["cuda"][1], results["cpu"][1]):
-        require(np.array_equal(a, b), "card and CPU slot or BMAT arrays differ")
+    _same_outputs(results["cuda"][0], results["cpu"][0],
+                  "card and CPU differ on the op tape")
+    _same_outputs(results["cuda"][1], results["cpu"][1],
+                  "card and CPU slot or BMAT arrays differ")
     print(f"whole path: card == CPU on {len(ops_tape)} ops (results, overflow "
-          f"counts, live contents, slot and BMAT arrays)", flush=True)
+          f"counts, range rows, adjusted ranks, live contents, slot and BMAT "
+          f"arrays)", flush=True)
+
+
+def _wave_outputs(res):
+    """A MixedWaveResult as a list of arrays."""
+    return [np.asarray(res.n_overflow), res.lookup_found, res.lookup_vals,
+            res.delete_hit, *_rows((res.range_keys, res.range_vals))]
 
 
 def router_card_vs_cpu(torch):
@@ -805,9 +1262,26 @@ def router_card_vs_cpu(torch):
     scripted maintenance and a fixed GMM: every result, overflow count,
     boundary and stacked array must be identical."""
     from repro_torch.core import ShardedUpLIF, UpLIFConfig
+    from repro_torch.core.shapes import padded_width
+    from repro_torch.core.sharded import MixedWave
     from repro_torch.core.types import GMMState
 
     base, ops_tape, probes = tape(seed=6)
+    r_lo, r_hi = tape_ranges(base, seed=8)
+    r_ = np.random.default_rng(9)
+    fresh = np.setdiff1d(r_.integers(0, int(base[-1]), 3000), base)
+    fresh = np.setdiff1d(fresh, np.concatenate([op[1] for op in ops_tape]))
+
+    def wave(k):
+        ins = fresh[k * 600:(k + 1) * 600]
+        dels = np.concatenate([ins[:50], base[k * 90:k * 90 + 90]])
+        look = np.concatenate([ins, dels, probes[:500]])
+        return lambda r: _wave_outputs(r.apply_wave(MixedWave(
+            insert_keys=ins, insert_vals=ins + 3, delete_keys=dels,
+            lookup_keys=look, range_lo=r_lo[::10], range_hi=r_hi[::10],
+            pad_insert=padded_width(len(ins)), pad_delete=padded_width(
+                len(dels)), pad_lookup=padded_width(len(look)),
+            range_max_out=64)))
     lo, hi = float(base[0]), float(base[-1])
     gmm = GMMState(
         weights=torch.tensor([0.2, 0.3, 0.5], dtype=torch.float64),
@@ -833,6 +1307,11 @@ def router_card_vs_cpu(torch):
         lambda r: r.switch_bmat_type(),
         lambda r: r.presize_bmat(2 * int(r.state.bmat.keys.shape[1])),
         lambda r: r.insert(*ops_tape[4][1:]),
+        lambda r: _rows(r.range_query_batch(r_lo, r_hi, max_out=256)),
+        lambda r: [r.adjusted_predict(probes)],
+        wave(0),
+        wave(1),
+        wave(2),
     ]
     results = {}
     for dev in ("cuda", "cpu"):
@@ -840,7 +1319,11 @@ def router_card_vs_cpu(torch):
                          n_shards=3, device=dev)
         out = []
         for step in steps:
-            out.append(np.asarray(step(r), dtype=object))
+            res = step(r)
+            if isinstance(res, list):
+                out.extend(res)
+            else:
+                out.append(np.asarray(res, dtype=object))
             out.append(r.boundaries.copy())
             out.extend(r.lookup(probes))
         st = r.state
@@ -850,13 +1333,12 @@ def router_card_vs_cpu(torch):
     cuda, cpu = results["cuda"], results["cpu"]
     require(cuda[2] == cpu[2] and isinstance(cuda[2], tuple),
             f"router card vs CPU: locate {cuda[2]} / {cpu[2]}")
-    for a, b in zip(cuda[0], cpu[0]):
-        require(np.array_equal(a, b), "router: card and CPU differ on the tape")
-    for a, b in zip(cuda[1], cpu[1]):
-        require(np.array_equal(a, b), "router: card and CPU arrays differ")
+    _same_outputs(cuda[0], cpu[0], "router: card and CPU differ on the tape")
+    _same_outputs(cuda[1], cpu[1], "router: card and CPU arrays differ")
     print(f"router whole path: card == CPU on {len(steps)} steps (results, "
-          f"overflow counts, boundaries, slot, BMAT and counter arrays; "
-          f"{cuda[3]} shards, locate {cuda[2]})", flush=True)
+          f"overflow counts, range rows, adjusted ranks, mixed waves, "
+          f"boundaries, slot, BMAT and counter arrays; {cuda[3]} shards, "
+          f"locate {cuda[2]})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -900,8 +1382,12 @@ def main() -> int:
     require(ops.locate_fusable(index.capacity, m.spline_keys.shape[0]),
             "the main path's index is above the float32 position bound")
 
-    phases, launches = run_main_path(torch, index, runner, WAVES, DELETE_WAVES)
+    phases, launches, live = run_main_path(torch, index, runner, WAVES,
+                                           DELETE_WAVES)
     print(f"main path (single index) launches: {launches}", flush=True)
+    tomb = index.bmat.size - int(index._counters.n_bmat_live)
+    _, range_launches = run_range_path(torch, index, live, "uplif range",
+                                       tombstones=tomb)
     profile_waves(torch, index, runner, rate=0.5, waves=20)
 
     router, tuner, r_runner, inserted, r_phases, r_launches = run_router_path(
@@ -909,7 +1395,13 @@ def main() -> int:
     print(f"main path (router + tuner) launches: {r_launches}", flush=True)
     print(f"tuner: {json.dumps(tuner.stats())}", flush=True)
     router_maintenance(torch, router, tuner, r_runner, inserted)
-    check_router_contents(router, r_runner, inserted)
+    r_live = check_router_contents(router, r_runner, inserted)
+    _, rr_launches = run_range_path(torch, router, r_live, "router range",
+                                    boundaries=router.boundaries, tuner=tuner)
+    _, w_launches, w_added, w_deleted = run_mixed_waves(
+        torch, router, r_runner, r_live, np.unique(np.concatenate(inserted)),
+        MIXED_WAVES)
+    check_router_contents(router, r_runner, inserted + w_added, w_deleted)
     k3_batch = r_runner.next_batch(0.5)[1]  # one write-heavy wave's inserts
     profile_waves(torch, router, r_runner, rate=0.5, waves=20, tuner=tuner,
                   label="router")
@@ -927,11 +1419,20 @@ def main() -> int:
     fb_runner = WorkloadRunner(fb_keys, init_frac=0.5, batch=BATCH, seed=0)
     fb = UpLIF(fb_runner.init_keys, fb_runner.init_keys + 1)
     require(int(fb.rs_model.shift) == 36, "fb index does not use shift 36")
+    fb_live = [fb_runner.init_keys]
     for _ in range(8):  # fill the fb BMAT so K2 has something to rank
         _, ins = fb_runner.next_batch(1.0)
         fb.insert(ins, ins + 1)
+        fb_live.append(ins)
+    fb_live = np.unique(np.concatenate(fb_live))
     errs.append(compare_index_kernels(
         torch, fb, query_mix(rng, fb_runner.init_keys), "fb"))
+
+    require(int(index.rs_model.shift) < 32, "wikits index shift is not < 32")
+    api = [run_kernel_api(torch, index, live, "wikits", 11),
+           run_kernel_api(torch, fb, fb_live, "fb", 12)]
+    api_launches = {k: sum(a[2][k] for a in api) for k in api[0][2]}
+    k4_timing, k5_timing, _ = api_timing(torch, index, fb, live, fb_live)
     del fb
     errs.append(large_index(torch, keys))
 
@@ -944,6 +1445,10 @@ def main() -> int:
                                       "wikits main-path batch"))
     timing = kernel_timing(torch, index, batch)
     timing["gmm_estep"] = k3_timing(torch, tuner.forecaster, k3_batch)
+    timing["tile_search"] = dict(
+        k4_timing, variants={"tiled_rank_one_pass": k4_timing.pop("rank_pass")})
+    timing["spline_lookup"] = dict(
+        k5_timing["wikits"], variants={"fb_shift_36": k5_timing["fb"]})
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
           f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
@@ -951,11 +1456,16 @@ def main() -> int:
         "fused_locate": (K1_SOURCE, K1_REPLACES, max(e[0] for e in errs)),
         "bmat_rank": (K2_SOURCE, K2_REPLACES, max(e[1] for e in errs)),
         "gmm_estep": (K3_SOURCE, K3_REPLACES, k3_err),
+        "tile_search": (K4_SOURCE, K4_REPLACES, max(a[0] for a in api)),
+        "spline_lookup": (K5_SOURCE, K5_REPLACES, max(a[1] for a in api)),
     }
+    paths = {"uplif": launches, "router": r_launches,
+             "uplif_range": range_launches, "router_range": rr_launches,
+             "router_waves": w_launches, "kernel_api": api_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
-        by_path = {"uplif": launches[name], "router": r_launches[name]}
+        by_path = {path: c[name] for path, c in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -964,6 +1474,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_bytes": t["bytes"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
+            **({"variants": t["variants"]} if "variants" in t else {}),
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

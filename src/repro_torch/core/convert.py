@@ -33,6 +33,14 @@ def _tensors(kind, arrays: Sequence[np.ndarray], device):
     return kind(*(torch.tensor(np.asarray(a), device=device) for a in arrays))
 
 
+def model_from_numpy(model: Sequence[np.ndarray], *,
+                     device) -> RadixSplineModel:
+    """``RadixSplineModel`` on ``device`` from its leaves (table,
+    spline_keys, spline_pos, shift), dtypes kept as given: the inputs of
+    the kernel-level ``ops.spline_lookup``."""
+    return _tensors(RadixSplineModel, model, device)
+
+
 def state_from_numpy(
     slots: Sequence[np.ndarray],
     model: Sequence[np.ndarray],

@@ -1,9 +1,11 @@
 """Batched point operations over one ``UpLIFState`` (port of the
 single-index part of ``repro/core/fops.py``).
 
-  * ``lookup(state, q)``     — batched point lookup
-  * ``insert(state, k, v)``  — batched upsert incl. BMAT overflow
-  * ``delete(state, q)``     — batched tombstone delete
+  * ``lookup(state, q)``          — batched point lookup
+  * ``insert(state, k, v)``       — batched upsert incl. BMAT overflow
+  * ``delete(state, q)``          — batched tombstone delete
+  * ``range_scan(state, lo, hi)`` — batched range extraction
+  * ``adjusted_rank(state, q)``   — logical rank M'(k) (paper Eq. 1)
 
 Batches arrive padded with KEY_MAX; ``UpLIFStatic`` carries the host
 scalars. The slot capacity must be a multiple of ``static.window``, which
@@ -52,6 +54,12 @@ _I64_MAX = int(np.iinfo(np.int64).max)
 class InsertResult(NamedTuple):
     pending: torch.Tensor     # bool[n] — keys still unplaced after the rounds
     n_overflow: torch.Tensor  # int64 — count routed to the BMAT this call
+
+
+class RangeResult(NamedTuple):
+    keys: torch.Tensor    # int64[n, max_out] — KEY_MAX beyond ``count``
+    vals: torch.Tensor    # int64[n, max_out]
+    count: torch.Tensor   # int32[n]
 
 
 def _scatter_drop(arr, idx, vals, mask):
@@ -446,6 +454,102 @@ def delete(state: UpLIFState, keys, *, static: UpLIFStatic):
 
 
 # ---------------------------------------------------------------------------
+# range scan — fixed-width slice per query + masked merge with the BMAT
+# ---------------------------------------------------------------------------
+
+
+def range_scan(state: UpLIFState, lo, hi, *, static: UpLIFStatic,
+               max_out: int) -> RangeResult:
+    """Batched range extraction: the sorted live (key, value) pairs with
+    lo <= key <= hi, at most ``max_out`` per query, as fixed-shape
+    KEY_MAX-padded rows plus per-query counts.
+
+    Each query reads ``L = min(4 * max_out, cap)`` slots from the located
+    start of ``lo`` and ``M = min(max_out, bcap)`` BMAT entries from
+    ``rank(lo)``; the two sorted streams merge and the ``max_out`` smallest
+    keys stay. JAX's ``dynamic_slice`` is a gather at ``start + arange``
+    (the starts are clipped, so every index is in range); both argsorts are
+    stable, so KEY_MAX ties and a key present in both streams keep JAX's
+    order."""
+    sk, sv, so = state.slots
+    bmat = state.bmat
+    cap = sk.shape[0]
+    L = min(4 * max_out, cap)
+    dev = lo.device
+
+    j, _ = _locate(static, sk, state.model, lo)
+    jj = torch.clamp(j, 0, cap - 1)
+    s = torch.where((j >= 0) & (sk[jj] == lo), jj, j + 1)
+    s = torch.clamp(s, 0, cap - L)
+    idx = s[:, None] + torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+    seg_k, seg_v, seg_o = sk[idx], sv[idx], so[idx]
+    ok = (seg_o & (seg_k >= lo[:, None]) & (seg_k <= hi[:, None])
+          & (seg_v != TOMBSTONE))
+    a_k = torch.where(ok, seg_k, KEY_MAX)
+    # in-slice keys are already sorted; pushing invalids to KEY_MAX keeps
+    # the valid prefix sorted under a stable argsort
+    a_ord = torch.argsort(a_k, dim=1, stable=True)[:, :max_out]
+    a_v = torch.take_along_dim(torch.where(ok, seg_v, 0), a_ord, dim=1)
+    a_k = torch.take_along_dim(a_k, a_ord, dim=1)
+
+    # buffered slice: [rank(lo), rank(hi + 1))
+    bcap = bmat.keys.shape[0]
+    M = min(max_out, bcap)
+    hi_safe = torch.clamp(hi, max=KEY_MAX - 1)
+    r0 = _bmat_rank(static, bmat, lo).to(torch.int64)
+    r1 = _bmat_rank(static, bmat, hi_safe + 1).to(torch.int64)
+    b_start = torch.clamp(r0, 0, bcap - M)
+    b_abs = b_start[:, None] + torch.arange(M, dtype=torch.int64,
+                                            device=dev)[None, :]
+    b_k, b_v = bmat.keys[b_abs], bmat.vals[b_abs]
+    b_ok = ((b_abs >= r0[:, None]) & (b_abs < r1[:, None])
+            & (b_k >= lo[:, None]) & (b_k <= hi[:, None])
+            & (b_v != TOMBSTONE))
+    b_k = torch.where(b_ok, b_k, KEY_MAX)
+    b_v = torch.where(b_ok, b_v, 0)
+
+    # merge the two sorted streams, keep the max_out smallest
+    m_k = torch.cat([a_k, b_k], dim=1)
+    m_v = torch.cat([a_v, b_v], dim=1)
+    m_ord = torch.argsort(m_k, dim=1, stable=True)[:, :max_out]
+    out_k = torch.take_along_dim(m_k, m_ord, dim=1)
+    out_v = torch.take_along_dim(m_v, m_ord, dim=1)
+    count = (out_k != KEY_MAX).sum(dim=1).to(torch.int32)
+    return RangeResult(keys=out_k, vals=out_v, count=count)
+
+
+# ---------------------------------------------------------------------------
+# logical rank (paper Eq. 1)
+# ---------------------------------------------------------------------------
+
+
+def _live_rank(keys, vals, occ, q):
+    """Per row of ``keys`` ([S, cap], non-decreasing along each row — the
+    fill-forward invariant), the count of live slots with key < q for
+    every query q ([S, N] -> int64 [S, N]). Because the keys are sorted,
+    the slots with key < q are the prefix up to ``searchsorted_left(q)``,
+    so the count is a prefix count of live slots read there: one scan over
+    the S·cap slots and O(S·N·log cap) searches, never the [N, cap]
+    broadcast the reference's reduce describes. The scan runs over the
+    flat [S·cap] view (a single-row scan, which torch runs as one device
+    scan) and each row subtracts its own base."""
+    S, cap = keys.shape
+    live = (occ & (vals != TOMBSTONE)).reshape(-1)
+    pref = torch.cat([live.new_zeros(1, dtype=torch.int64),
+                      torch.cumsum(live, 0, dtype=torch.int64)])
+    base = torch.arange(S, device=keys.device)[:, None] * cap
+    pos = torch.searchsorted(keys, q)
+    return pref[base + pos] - pref[base]
+
+
+def adjusted_rank(state: UpLIFState, queries, *, static: UpLIFStatic):
+    """M'(k) = live in-place rank + BMAT bias r(k), exact."""
+    sk, sv, so = state.slots
+    arr_rank = _live_rank(sk[None], sv[None], so[None], queries[None])[0]
+    return arr_rank + _bmat_rank(static, state.bmat, queries).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
 # stacked (sharded) op suite — S shards, one flat program
 #
 # The router (repro_torch/core/sharded.py) stores S shards as one stacked
@@ -694,12 +798,13 @@ def sdelete(state: UpLIFState, q, boundaries, codes=None, *,
 
 def srank(state: UpLIFState, q, boundaries, codes=None, *,
           static: UpLIFStatic):
-    """Stacked shard-local adjusted rank (an O(cap) reduce per query)."""
+    """Stacked shard-local adjusted rank. Every query is searched in every
+    shard's row (S searches per query, no [N, cap] tensor) and keeps the
+    count of its own shard."""
     sid = _route_on_device(boundaries, q)
-    live = state.slots.occ & (state.slots.vals != TOMBSTONE)
-    keys_q = state.slots.keys[sid]   # [N, cap] batched gather
-    live_q = live[sid]
-    arr_rank = (live_q & (keys_q < q[:, None])).sum(dim=1)
+    S = state.slots.keys.shape[0]
+    ranks = _live_rank(*state.slots, q[None].expand(S, -1).contiguous())
+    arr_rank = torch.gather(ranks, 0, sid[None])[0]
     return arr_rank + _bmat_rank_stacked(static, state.bmat, q, sid, codes)
 
 

@@ -23,3 +23,14 @@ def bucket_width(n: int, batch_bucket: int) -> int:
     if n >= batch_bucket:
         return ((n + batch_bucket - 1) // batch_bucket) * batch_bucket
     return max(256, pow2_at_least(n))
+
+
+def padded_width(n: int, floor: int = 256, ceiling: int | None = None) -> int:
+    """Power-of-two padded width for a live-stream flush: the next power of
+    two >= n, clamped to [floor, ceiling]. With a power-of-two floor and
+    ceiling the reachable widths are exactly {floor, 2*floor, ...,
+    ceiling}. ``MixedWave.pad_*`` widths come from here."""
+    w = max(pow2_at_least(max(int(n), 1)), int(floor))
+    if ceiling is not None:
+        w = min(w, int(ceiling))
+    return w

@@ -26,9 +26,13 @@ tensors), so holding a reference to ``state`` is the freeze. Mutations are
 single-writer; readers on other threads grab (state, boundaries, codes,
 static) as one view under the swap lock.
 
+Range scans run per shard (``_vrange``: each shard's row of the stacked
+state under its own locate strategy) and concatenate in shard order, which
+is key order. ``apply_wave`` applies one ``MixedWave`` (the gateway's
+dispatch unit) in the canonical order inserts, deletes, lookups, ranges.
+
 The router runs on ``cuda`` unless the caller passes ``device="cpu"``.
-Range queries, ``adjusted_predict``, mixed waves and ``retrain_subset``
-arrive with later slices of the port.
+``retrain_subset`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -49,8 +53,6 @@ from repro_torch.core.types import BMATState, GMMState, KEY_MAX, SlotsState
 from repro_torch.core.uplif import UpLIF, UpLIFConfig
 from repro_torch.kernels.ops import native_kernels, resolve_device
 
-_RANGE_SLICE = "the range-scan slice of the port"
-
 
 def _stack(states: Sequence[UpLIFState]) -> UpLIFState:
     """Leaf-wise stack of equally shaped states along a new shard axis."""
@@ -69,6 +71,20 @@ def _stack(states: Sequence[UpLIFState]) -> UpLIFState:
 def _row(state: UpLIFState, s: int) -> UpLIFState:
     """Shard ``s`` of a stacked state (views, no copy)."""
     return UpLIFState(*(type(part)(*(x[s] for x in part)) for part in state))
+
+
+def _vrange(state: UpLIFState, lo, hi, *, statics, max_out: int):
+    """Per-shard range scans: shard ``s`` scans its own row of the stacked
+    state (views) for the queries ``lo[s]``/``hi[s]`` under its own
+    ``statics[s]`` (the per-shard locate strategy; the results are
+    byte-identical across strategies). Returns one ``RangeResult`` with a
+    leading shard axis."""
+    outs = [
+        fops.range_scan(_row(state, s), lo[s], hi[s], static=statics[s],
+                        max_out=max_out)
+        for s in range(len(statics))
+    ]
+    return fops.RangeResult(*(torch.stack(xs) for xs in zip(*outs)))
 
 
 @dataclasses.dataclass
@@ -184,13 +200,48 @@ class _DrainingCommit:
     cuts: Tuple[int, ...]
 
 
+@dataclasses.dataclass
 class MixedWave:
-    """A mixed-op request wave (the gateway's dispatch unit)."""
+    """One mixed-op request wave, ready for ``ShardedUpLIF.apply_wave``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "mixed waves arrive with the serving slice of the port"
+    The gateway's dispatch unit: each op kind carries its own batch and an
+    optional pad width (``pad_*``, a power of two from
+    ``core/shapes.padded_width``). Given a pad width, the router pads to
+    exactly that width instead of the bulk ``bucket_width`` family, so a
+    live stream with no repeating batch sizes lands on a small set of
+    widths. ``None`` fields and empty arrays skip that op kind."""
+
+    lookup_keys: Optional[np.ndarray] = None
+    insert_keys: Optional[np.ndarray] = None
+    insert_vals: Optional[np.ndarray] = None
+    delete_keys: Optional[np.ndarray] = None
+    range_lo: Optional[np.ndarray] = None
+    range_hi: Optional[np.ndarray] = None
+    pad_lookup: Optional[int] = None
+    pad_insert: Optional[int] = None
+    pad_delete: Optional[int] = None
+    range_max_out: int = 256
+
+    @property
+    def n_ops(self) -> int:
+        return sum(
+            len(a)
+            for a in (self.lookup_keys, self.insert_keys, self.delete_keys,
+                      self.range_lo)
+            if a is not None
         )
+
+
+@dataclasses.dataclass
+class MixedWaveResult:
+    """Batch-ordered results of one ``apply_wave`` dispatch."""
+
+    lookup_found: Optional[np.ndarray] = None
+    lookup_vals: Optional[np.ndarray] = None
+    delete_hit: Optional[np.ndarray] = None
+    n_overflow: int = 0
+    range_keys: Optional[List[np.ndarray]] = None
+    range_vals: Optional[List[np.ndarray]] = None
 
 
 def _shell_from(
@@ -561,12 +612,16 @@ class ShardedUpLIF:
                 res = self._rng.choice(res, cap, replace=False)
             m.reservoir = res
 
-    def _pad_route(self, keys: np.ndarray, *aux):
+    def _pad_route(self, keys: np.ndarray, *aux, width: Optional[int] = None):
         """Pad the batch to a bucketed width — one batch for all shards (the
         stacked ops route each query on the device) — and move it and
-        ``aux`` (zero-padded) to the device."""
+        ``aux`` (zero-padded) to the device. ``width`` replaces the bucket
+        (a ``MixedWave``'s power-of-two pad width)."""
         n = len(keys)
-        B = bucket_width(max(n, 1), self.cfg.batch_bucket)
+        B = (bucket_width(max(n, 1), self.cfg.batch_bucket) if width is None
+             else int(width))
+        if B < n:
+            raise ValueError(f"pad width {B} below batch size {n}")
         q = np.full(B, KEY_MAX, dtype=np.int64)
         q[:n] = keys
         outs = []
@@ -577,10 +632,12 @@ class ShardedUpLIF:
         return torch.tensor(q, device=self.device), n, *outs
 
     # -- queries ---------------------------------------------------------------
-    def lookup(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def lookup(
+        self, queries: np.ndarray, pad_to: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched point lookup -> (found bool[n], values int64[n])."""
         queries = np.asarray(queries, dtype=np.int64)
-        q, n = self._pad_route(queries)
+        q, n = self._pad_route(queries, width=pad_to)
         state, boundaries, tb, codes, static = self._read_view()
         t0 = time.perf_counter()
         f, v = fops.slookup(state, q, tb, codes, static=static)
@@ -612,7 +669,12 @@ class ShardedUpLIF:
                 continue
             bl.log.append((kind, keys[m], vals[m] if vals is not None else None))
 
-    def insert(self, keys: np.ndarray, vals: Optional[np.ndarray] = None) -> int:
+    def insert(
+        self,
+        keys: np.ndarray,
+        vals: Optional[np.ndarray] = None,
+        pad_to: Optional[int] = None,
+    ) -> int:
         """Batched upsert. Returns the count that went to the BMATs."""
         keys = np.asarray(keys, dtype=np.int64)
         if vals is None:
@@ -625,7 +687,7 @@ class ShardedUpLIF:
         if self._logs:
             self._log_op("insert", keys, vals)
         self._observe_updates(keys)
-        q, n, vm = self._pad_route(keys, vals)
+        q, n, vm = self._pad_route(keys, vals, width=pad_to)
         self._ensure_bmat_capacity(int(q.shape[0]))
         state, res = fops.sinsert(self.state, q, vm, self._tbounds,
                                   self._codes, static=self._static())
@@ -633,12 +695,14 @@ class ShardedUpLIF:
             self.state = state
         return int(res.n_overflow)
 
-    def delete(self, keys: np.ndarray) -> np.ndarray:
+    def delete(
+        self, keys: np.ndarray, pad_to: Optional[int] = None
+    ) -> np.ndarray:
         """Batched delete (tombstones). Returns hits."""
         keys = np.asarray(keys, dtype=np.int64)
         if self._logs:
             self._log_op("delete", keys, None)
-        q, n = self._pad_route(keys)
+        q, n = self._pad_route(keys, width=pad_to)
         state, hit = fops.sdelete(self.state, q, self._tbounds, self._codes,
                                   static=self._static())
         with self._lock:
@@ -646,25 +710,108 @@ class ShardedUpLIF:
         return hit.cpu().numpy()[:n]
 
     def range_query(self, lo: int, hi: int, max_out: int = 1024):
-        raise NotImplementedError(f"range_query arrives with {_RANGE_SLICE}")
-
-    def range_query_batch(self, lo, hi, max_out: int = 1024):
-        raise NotImplementedError(
-            f"range_query_batch arrives with {_RANGE_SLICE}"
+        """Sorted (keys, vals) with lo <= key <= hi, at most ``max_out``."""
+        ks, vs = self.range_query_batch(
+            np.asarray([lo], dtype=np.int64),
+            np.asarray([hi], dtype=np.int64),
+            max_out,
         )
+        return ks[0], vs[0]
 
-    def _vrange(self, *args, **kwargs):
-        raise NotImplementedError(f"_vrange arrives with {_RANGE_SLICE}")
+    def range_query_batch(
+        self, lo: np.ndarray, hi: np.ndarray, max_out: int = 1024
+    ):
+        """A range may span several shards: every shard answers the queries
+        that intersect its key interval (``_vrange``), and the per-shard
+        slices concatenate in shard order, which is key order because the
+        partition is a range partition."""
+        lo = np.asarray(lo, dtype=np.int64)
+        hi = np.asarray(hi, dtype=np.int64)
+        n = len(lo)
+        with self._lock:
+            state, boundaries = self.state, self.boundaries
+            static = self._static()
+            per_shard = tuple(self._locate_per_shard)
+        n_shards = len(boundaries) + 1
+        statics = tuple(static._replace(locate=per_shard[s])
+                        for s in range(n_shards))
+        edges = np.concatenate([[0], boundaries, [KEY_MAX]])
+        picks = [
+            np.nonzero((hi >= edges[s]) & (lo < edges[s + 1]))[0]
+            for s in range(n_shards)
+        ]
+        B = bucket_width(max(max((len(p) for p in picks), default=1), 1),
+                         self.cfg.batch_bucket)
+        lo_m = np.full((n_shards, B), KEY_MAX, dtype=np.int64)
+        hi_m = np.zeros((n_shards, B), dtype=np.int64)
+        for s, p in enumerate(picks):
+            lo_m[s, :len(p)] = lo[p]
+            hi_m[s, :len(p)] = hi[p]
+        res = _vrange(state, torch.tensor(lo_m, device=self.device),
+                      torch.tensor(hi_m, device=self.device),
+                      statics=statics, max_out=max_out)
+        ks = res.keys.cpu().numpy()
+        vs = res.vals.cpu().numpy()
+        cn = res.count.cpu().numpy()
+        parts_k: List[List[np.ndarray]] = [[] for _ in range(n)]
+        parts_v: List[List[np.ndarray]] = [[] for _ in range(n)]
+        for s, p in enumerate(picks):
+            for row, qi in enumerate(p):
+                c = cn[s, row]
+                parts_k[qi].append(ks[s, row, :c])
+                parts_v[qi].append(vs[s, row, :c])
+        out_k, out_v = [], []
+        for i in range(n):
+            if parts_k[i]:
+                out_k.append(np.concatenate(parts_k[i])[:max_out])
+                out_v.append(np.concatenate(parts_v[i])[:max_out])
+            else:
+                out_k.append(np.zeros(0, dtype=np.int64))
+                out_v.append(np.zeros(0, dtype=np.int64))
+        return out_k, out_v
+
+    def apply_wave(self, wave: MixedWave) -> MixedWaveResult:
+        """Dispatch one mixed-op wave (the gateway's flush unit).
+
+        Op kinds run in the canonical wave order inserts -> deletes ->
+        lookups -> ranges: writes land before reads, so a write of this
+        wave or of any earlier one is visible to the wave's reads
+        (read-your-writes). Each op kind is one dispatch at its ``pad_*``
+        width; empty kinds cost nothing."""
+        res = MixedWaveResult()
+        if wave.insert_keys is not None and len(wave.insert_keys):
+            res.n_overflow = self.insert(
+                wave.insert_keys, wave.insert_vals, pad_to=wave.pad_insert
+            )
+        if wave.delete_keys is not None and len(wave.delete_keys):
+            res.delete_hit = self.delete(
+                wave.delete_keys, pad_to=wave.pad_delete
+            )
+        if wave.lookup_keys is not None and len(wave.lookup_keys):
+            res.lookup_found, res.lookup_vals = self.lookup(
+                wave.lookup_keys, pad_to=wave.pad_lookup
+            )
+        if wave.range_lo is not None and len(wave.range_lo):
+            res.range_keys, res.range_vals = self.range_query_batch(
+                wave.range_lo, wave.range_hi, max_out=wave.range_max_out
+            )
+        return res
 
     def adjusted_predict(self, queries: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(
-            f"adjusted_predict arrives with {_RANGE_SLICE}"
-        )
-
-    def apply_wave(self, wave) -> None:
-        raise NotImplementedError(
-            "apply_wave arrives with the serving slice of the port"
-        )
+        """Global logical rank = shard-local rank + total entries in the
+        shards left of the owning shard."""
+        queries = np.asarray(queries, dtype=np.int64)
+        state, boundaries, tb, codes, static = self._read_view()
+        # a preceding shard contributes its live in-place keys plus its
+        # whole BMAT entry count: the bias r(k) counts tombstones too, as
+        # the single-shard BMAT rank does
+        sizes = (state.counters.n_keys.cpu().numpy()
+                 + state.bmat.size.cpu().numpy().astype(np.int64))
+        base = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        q, n = self._pad_route(queries)
+        rank = fops.srank(state, q, tb, codes, static=static).cpu().numpy()
+        sid = np.searchsorted(boundaries, queries, side="right")
+        return rank[:n] + base[sid]
 
     # -- capacity management ---------------------------------------------------
     def _grow_bmat(self, new_cap: int):

@@ -6,9 +6,8 @@ shell owns only host concerns: the host-side bulk load, batch padding,
 BMAT capacity growth and the D_update reservoir.
 
 The index runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no GPU and no explicit CPU request, construction raises. Range queries,
-``adjusted_predict`` and ``retrain_subset`` arrive with later slices of the
-port.
+no GPU and no explicit CPU request, construction raises.
+``retrain_subset`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -261,6 +260,40 @@ class UpLIF:
         alive, vals = fops.lookup(self.fstate, q, static=self.fstatic())
         self.n_lookups += n
         return alive.cpu().numpy()[:n], vals.cpu().numpy()[:n]
+
+    def adjusted_predict(self, queries: np.ndarray) -> np.ndarray:
+        """Paper Eq. 1 / Module 3: the logical position M'(k) = live
+        in-place rank + r(k), the BMAT bias. Exposed for validation."""
+        queries = np.asarray(queries, dtype=np.int64)
+        q, n = self._pad(queries, KEY_MAX)
+        rank = fops.adjusted_rank(self.fstate, q, static=self.fstatic())
+        return rank.cpu().numpy()[:n]
+
+    def range_query(self, lo: int, hi: int, max_out: int = 1024):
+        """Sorted (keys, vals) with lo <= key <= hi, at most ``max_out``."""
+        ks, vs = self.range_query_batch(
+            np.asarray([lo], dtype=np.int64),
+            np.asarray([hi], dtype=np.int64),
+            max_out,
+        )
+        return ks[0], vs[0]
+
+    def range_query_batch(self, lo: np.ndarray, hi: np.ndarray,
+                          max_out: int = 1024):
+        """Batched range extraction: one ``fops.range_scan`` over the padded
+        batch (``lo`` padded with KEY_MAX, ``hi`` with 0, so padding rows
+        are empty); the host only unpacks the result rows."""
+        lo = np.asarray(lo, dtype=np.int64)
+        hi = np.asarray(hi, dtype=np.int64)
+        ql, n = self._pad(lo, KEY_MAX)
+        qh, _ = self._pad(hi, 0)
+        res = fops.range_scan(self.fstate, ql, qh, static=self.fstatic(),
+                              max_out=max_out)
+        ks = res.keys.cpu().numpy()
+        vs = res.vals.cpu().numpy()
+        counts = res.count.cpu().numpy()
+        return ([ks[i, :counts[i]] for i in range(n)],
+                [vs[i, :counts[i]] for i in range(n)])
 
     # -- updates ---------------------------------------------------------------
     def insert(self, keys: np.ndarray, vals: Optional[np.ndarray] = None):

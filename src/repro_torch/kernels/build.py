@@ -5,11 +5,12 @@ process per source, all started together), and the objects are linked
 into one shared library with a plain ``extern "C"`` interface, loaded with
 ``ctypes``. The build happens at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and is keyed by a
-hash of the sources and flags, so an edited source rebuilds.
+hash of the sources, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds.
 
-The flags deliberately omit ``--use_fast_math``: the fused locate and GMM
-E-step kernels need IEEE division, full-precision ``logf``/``expf`` and no
-flush-to-zero to match their plain versions.
+The flags deliberately omit ``--use_fast_math``: the fused locate, spline
+lookup and GMM E-step kernels need IEEE division, full-precision
+``logf``/``expf`` and no flush-to-zero to match their plain versions.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu")
+SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
+           "spline_lookup.cu", "tile_search.cu")
+HEADERS = ("key_delta.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,6 +44,11 @@ SIGNATURES = {
     "bmat_rank_launch": [_P] * 5 + [_I] * 4 + [_P],
     # x, weights, means, stds, out, n, k, stream
     "gmm_estep_launch": [_P] * 5 + [_I] * 2 + [_P],
+    # table, knots, knot_pos, queries, out, n, n_table, n_knots, shift,
+    # n_iters, split, stream
+    "spline_lookup_launch": [_P] * 5 + [_I] * 6 + [_P],
+    # slots, queries, seg_tile, seg_start, out, n_seg, cap, pass, stream
+    "tile_search_launch": [_P] * 5 + [_I, ctypes.c_longlong, _I, _P],
 }
 
 
@@ -56,7 +64,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -7,7 +7,8 @@ non-negative key domain and for the KEY_MAX padding, so the port compares
 int64 keys directly, on the CPU and in the CUDA kernels alike.
 
 ``gmm_estep_plain`` is the twin of ``ref.gmm_estep_ref``: K3's plain
-version, which the CPU path and the tests run.
+version, which the CPU path and the tests run. ``fma_f32`` is the
+single-rounding multiply-add of K1's and K5's plain versions.
 """
 from __future__ import annotations
 
@@ -22,6 +23,24 @@ def key_leq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def key_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a < b on int64 keys."""
     return a < b
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on float32 tensors with one rounding, as a fused
+    multiply-add rounds it. The product is exact in float64; the float64
+    sum's own rounding is undone where it lands on a float32 tie, from the
+    sum's exact error (TwoSum), so no double rounding remains."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    r = p + cd
+    bv = r - p
+    err = (p - (r - bv)) + (cd - bv)
+    f = r.to(torch.float32)
+    fd = f.to(torch.float64)
+    inf = torch.full_like(f, float("inf"))
+    g = torch.nextafter(f, torch.where(r > fd, inf, -inf))
+    tie = (r != fd) & (r == (fd + g.to(torch.float64)) * 0.5) & (err != 0)
+    return torch.where(tie & ((err > 0) == (g > f)), g, f)
 
 
 def gmm_estep_plain(

@@ -1,4 +1,5 @@
-"""K1 — the fused locate kernel and its plain torch version.
+"""K1 — the fused locate kernel, K5 — the spline lookup kernel, and their
+plain torch versions.
 
 Replaces the TPU kernel ``fused_locate_pallas``
 (``src/repro/kernels/spline_lookup.py``). Per query: radix bucket, a
@@ -15,13 +16,22 @@ tensors; ``fused_locate.launches`` counts the CUDA launches.
 
 Arithmetic note: the TPU kernel's reference run (XLA) contracts the lerp
 ``p0 + t * (p1 - p0)`` into a fused multiply-add. The CUDA kernel writes
-the FMA; the plain version forms ``t * (p1 - p0)`` exactly in float64,
-adds ``p0`` there and rounds once to float32, which gives the FMA's result.
+the FMA; the plain version computes it with ``ref.fma_f32`` (an exact
+float64 product, one float32 rounding), which gives the FMA's result.
 
 Float32 positions are exact only up to 2^24 slots; above that the JAX
 package leaves the TPU kernel for its float64 spline path. With
 ``interp64=True`` both versions interpolate as that path does (the port's
 ``radix_spline._rs_predict_impl``), so the kernel serves any capacity.
+
+K5 replaces the TPU kernel ``spline_lookup_pallas`` (same file of the JAX
+package): K1's first three steps alone, returning the float32 predicted
+position. Its JAX adapter takes the Pallas kernel only for radix shifts of
+32 and above and the plain ``ref.spline_lookup_ref`` below, and the two
+round differently; the CUDA source ``csrc/spline_lookup.cu`` has both
+roundings behind a mode flag that ``spline_lookup`` sets from the shift, so
+a CUDA tensor always launches the kernel. ``spline_lookup.launches``
+counts its CUDA launches.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import key_leq
+from repro_torch.kernels.ref import fma_f32, key_leq
 
 _TWO32 = 4294967296.0
 
@@ -96,9 +106,7 @@ def fused_locate_plain(
         seg = _split_delta_f32(k1, k0)
         t = torch.clamp(dk / torch.clamp(seg, min=1.0), 0.0, 1.0)
         p0 = p0.to(torch.float32)
-        d = p1.to(torch.float32) - p0
-        p = (t.to(torch.float64) * d.to(torch.float64)
-             + p0.to(torch.float64)).to(torch.float32)
+        p = fma_f32(t, p1.to(torch.float32) - p0, p0)
 
     c = torch.clamp(torch.round(p).to(torch.int64), 0, cap - 1)
     start = torch.clamp((c // window - 1) * window, 0, max(cap - L, 0))
@@ -168,3 +176,83 @@ def fused_locate(
 
 
 fused_locate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 — the spline lookup (batched learned predict)
+# ---------------------------------------------------------------------------
+
+
+def spline_lookup_plain(table, spline_keys, spline_pos, queries, *,
+                        shift: int, n_iters: int):
+    """Plain torch version of K5: the float32 predicted position of each
+    int64 query under one radix spline (``table`` int32 [T],
+    ``spline_keys`` int64 [K], float64 ``spline_pos`` [K]).
+
+    ``shift >= 32`` is the Pallas kernel's arithmetic: the bucket from the
+    high half of the key, (hi, lo)-split float32 deltas and a fused
+    multiply-add lerp. ``shift < 32`` is the reference's plain fallback:
+    the bucket ``int32(q >> shift)`` (wrapped before the clip), each int64
+    delta rounded to float32 once, and a separate multiply and add."""
+    n_knots = spline_keys.shape[0]
+    n_buckets = table.shape[0] - 2
+    split = shift >= 32
+    if split:
+        b = (queries >> 32) >> (shift - 32)
+    else:
+        b = (queries >> shift) & 0xFFFFFFFF
+        b = torch.where(b >= 1 << 31, b - (1 << 32), b)  # int32 wrap
+    b = torch.clamp(b, 0, n_buckets - 1)
+    lo = torch.clamp(table[b].to(torch.int64), min=1) - 1
+    hi = torch.clamp(table[b + 1].to(torch.int64), 0, n_knots - 2)
+    for _ in range(n_iters):
+        mid = (lo + hi + 1) >> 1
+        go = key_leq(spline_keys[mid], queries)
+        lo, hi = torch.where(go, mid, lo), torch.where(go, hi, mid - 1)
+    s = torch.clamp(lo, 0, n_knots - 2)
+    k0 = spline_keys[s]
+    k1 = spline_keys[s + 1]
+    p0 = spline_pos[s].to(torch.float32)
+    p1 = spline_pos[s + 1].to(torch.float32)
+    if split:
+        dk = _split_delta_f32(queries, k0)
+        seg = _split_delta_f32(k1, k0)
+    else:
+        dk = (queries - k0).to(torch.float32)
+        seg = (k1 - k0).to(torch.float32)
+    t = torch.clamp(dk / torch.clamp(seg, min=1.0), 0.0, 1.0)
+    if split:
+        return fma_f32(t, p1 - p0, p0)
+    return p0 + t * (p1 - p0)
+
+
+def spline_lookup(table, spline_keys, spline_pos, queries, *, shift: int,
+                  n_iters: int):
+    """K5: the CUDA kernel for CUDA tensors (in both shift regimes), the
+    plain version for CPU tensors. Same contract as
+    ``spline_lookup_plain``."""
+    if queries.device.type == "cpu":
+        return spline_lookup_plain(table, spline_keys, spline_pos, queries,
+                                   shift=shift, n_iters=n_iters)
+    if queries.device.type != "cuda":
+        raise ValueError(f"no spline lookup kernel for {queries.device}")
+    if not 0 <= shift <= 63:
+        raise ValueError(f"radix shift {shift} outside [0, 63]")
+    if spline_keys.shape[0] < 2:
+        raise ValueError("the spline lookup needs at least two knots")
+    _check_inputs(queries.device, table=table, spline_keys=spline_keys,
+                  spline_pos=spline_pos, queries=queries)
+    n = queries.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=queries.device)
+    stream = torch.cuda.current_stream(queries.device).cuda_stream
+    err = build.library().spline_lookup_launch(
+        table.data_ptr(), spline_keys.data_ptr(), spline_pos.data_ptr(),
+        queries.data_ptr(), out.data_ptr(), n, table.shape[0],
+        spline_keys.shape[0], shift, n_iters, int(shift >= 32), stream,
+    )
+    build.check(err, "spline_lookup")
+    spline_lookup.launches += 1
+    return out
+
+
+spline_lookup.launches = 0

@@ -29,7 +29,7 @@ from repro_torch.core.radix_spline import build_radix_spline
 from repro_torch.core.types import KEY_MAX
 from repro_torch.kernels import ops
 from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
-from repro_torch.kernels.gmm_estep import gmm_estep
+from repro_torch.kernels.gmm_estep import MAX_COMPONENTS, gmm_estep
 from repro_torch.kernels.ref import gmm_estep_plain
 from repro_torch.kernels.spline_lookup import fused_locate, fused_locate_plain
 from tests.conftest import make_keys
@@ -399,7 +399,8 @@ def test_guards():
     assert not ops.locate_fusable(1024, 1)
     assert ops.native_kernels("cuda") and not ops.native_kernels("cpu")
     assert set(ops.launch_counts()) == {"fused_locate", "bmat_rank",
-                                        "gmm_estep"}
+                                        "gmm_estep", "tile_search",
+                                        "spline_lookup"}
 
 
 # ---------------------------------------------------------------------------
@@ -488,5 +489,6 @@ def test_gmm_estep_cuda_matches_plain(cuda, n, k):
     assert gmm_estep.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5
     assert float((got.sum(1) - 1).abs().max()) <= 1e-5
+    too_many = MAX_COMPONENTS // k + 1  # repeats that exceed the bound
     with pytest.raises(ValueError):
-        gmm_estep(args[0], *(torch.cat([a] * 3) for a in args[1:]))
+        gmm_estep(args[0], *(torch.cat([a] * too_many) for a in args[1:]))

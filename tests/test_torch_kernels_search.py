@@ -1,0 +1,414 @@
+"""The port's kernel-level predict/search/rank API against the JAX package,
+on the CPU: K5 (spline lookup), K4 (tile search) and the ``ops`` entries
+``spline_lookup``, ``route_and_search`` and ``bmat_rank`` built on them.
+
+K4 and K5 run their plain torch versions here and are held to the Pallas
+kernels in interpret mode (and K5, below radix shift 32, to the reference's
+plain ``ref.spline_lookup_ref``) with zero tolerance: K4 is an integer
+count and K5 repeats the reference's float32 roundings operation for
+operation, so the positions must agree bit for bit. The tests marked
+``gpu`` hold the CUDA kernels to the plain versions and skip without a
+card.
+"""
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core  # noqa: F401 — x64
+import jax.numpy as jnp
+from repro.core.radix_spline import build_radix_spline as jax_build_rs
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.spline_lookup import Q_BLK as SPL_Q_BLK, spline_lookup_pallas
+from repro.kernels.tile_search import tile_search_pallas
+from repro_torch.core.convert import model_from_numpy
+from repro_torch.kernels import ops, tile_search as tmod
+from repro_torch.kernels.ref import fma_f32
+from repro_torch.kernels.spline_lookup import spline_lookup, spline_lookup_plain
+from repro_torch.kernels.tile_search import (
+    Q_BLK, TILE, tile_search, tile_search_plain,
+)
+from tests.conftest import make_keys
+
+I64_MAX = np.iinfo(np.int64).max
+# key domains: wikits-like (shift 14), a mid domain (shift 28) whose
+# above-domain queries wrap the reference's int32 bucket, fb-like (shift 36)
+DOMAINS = {"wikits": 1 << 30, "wrap": 1 << 44, "fb": 1 << 52}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread keeps the parallel
+    test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the exact fused multiply-add of the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _round_f32(x: Fraction) -> np.float32:
+    """The float32 nearest to ``x``, ties to even."""
+    g = np.float32(float(x))
+    best = None
+    for c in (np.nextafter(g, np.float32(-np.inf)), g,
+              np.nextafter(g, np.float32(np.inf))):
+        d = abs(Fraction(float(c)) - x)
+        if best is None or d < best[0] or (
+                d == best[0] and int(c.view(np.int32)) % 2 == 0):
+            best = (d, c)
+    return best[1]
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` equals the exactly rounded a*b + c, also where the
+    float64 sum lands on a float32 tie that a second rounding would
+    break the wrong way (the first case)."""
+    r = np.random.default_rng(0)
+    a = np.concatenate([[2.0 ** -24 * (1 + 2.0 ** -23)], r.random(1500)])
+    b = np.concatenate([[1 - 2.0 ** -23], r.normal(0, 1e6, 1500)])
+    c = np.concatenate([[1 + 2.0 ** -23], r.normal(0, 1e7, 1500)])
+    a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    got = fma_f32(*(torch.tensor(x) for x in (a, b, c))).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], dtype=np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    twice = (a[:1].astype(np.float64) * b[:1] + c[:1]).astype(np.float32)
+    assert twice[0] != got[0]  # the double-rounding case is really there
+
+
+# ---------------------------------------------------------------------------
+# K5 — spline lookup
+# ---------------------------------------------------------------------------
+
+
+def _spline(domain, n=1 << 15, seed=3):
+    hi = DOMAINS[domain]
+    keys = make_keys(n, seed, hi=hi)
+    pos = np.arange(len(keys), dtype=np.int64) * 2
+    model, static = jax_build_rs(keys, pos, radix_bits=16, max_error=24)
+    return keys, model, static
+
+
+def _k5_queries(keys, shift, seed, n=1500):
+    """Hits, misses, keys above the domain (some whose ``q >> shift``
+    exceeds int32 when the shift is below 32), 0 and int64 max."""
+    r = np.random.default_rng(seed)
+    top = int(keys[-1])
+    parts = [r.choice(keys, n // 3), r.integers(0, top, n // 3),
+             top + 1 + r.integers(0, 1 << 40, n // 6)]
+    if shift < 32:
+        parts.append(r.integers(1 << (shift + 31), 1 << (shift + 33), 64))
+    parts.append([0, top, I64_MAX])
+    return np.concatenate(parts).astype(np.int64)
+
+
+def _same_bits(a, b):
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("domain", ["wikits", "wrap", "fb"])
+def test_spline_lookup_matches_jax(domain):
+    """K5's plain version equals the Pallas kernel (shift >= 32) or the
+    reference's plain path (shift < 32) bit for bit, and the port's
+    ``ops.spline_lookup`` equals JAX's."""
+    keys, m, st = _spline(domain)
+    shift = int(m.shift)
+    assert (shift >= 32) == (domain == "fb")
+    q = _k5_queries(keys, shift, seed=len(domain))
+    if shift < 32:
+        wrapped = (q >> shift) >= (1 << 31)
+        assert wrapped.any()  # the int32 wrap is exercised
+    tm = model_from_numpy([np.asarray(a) for a in m], device="cpu")
+    tq = torch.tensor(q)
+
+    got = spline_lookup_plain(tm.table, tm.spline_keys, tm.spline_pos, tq,
+                              shift=shift, n_iters=st.n_search_iters).numpy()
+    sk_hi, sk_lo = jops.split_key(m.spline_keys)
+    qh, n = jops._pad_to(jops.split_key(jnp.asarray(q))[0], SPL_Q_BLK, 0)
+    ql, _ = jops._pad_to(jops.split_key(jnp.asarray(q))[1], SPL_Q_BLK, 0)
+    sp32 = m.spline_pos.astype(jnp.float32)
+    if shift >= 32:
+        want = spline_lookup_pallas(m.table, sk_hi, sk_lo, sp32, qh, ql,
+                                    shift=shift, n_iters=st.n_search_iters,
+                                    interpret=True)
+    else:
+        want = jref.spline_lookup_ref(m.table, sk_hi, sk_lo, sp32, qh, ql,
+                                      shift, st.n_search_iters)
+    _same_bits(got, np.asarray(want)[:n])
+
+    port = ops.spline_lookup(tm.table, tm.spline_keys, tm.spline_pos,
+                             tm.shift, tq, st.n_search_iters)
+    jax = jops.spline_lookup(m.table, m.spline_keys, m.spline_pos, shift,
+                             jnp.asarray(q), st.n_search_iters)
+    assert port.dtype == torch.float32
+    _same_bits(port.numpy(), np.asarray(jax))
+
+
+def test_spline_lookup_roundings_differ_across_the_split():
+    """The two K5 modes are different arithmetic, so neither can stand in
+    for the other: on the fb model the reference's plain rounding (run at
+    the same shift) differs from the Pallas rounding that K5 computes
+    there on some queries, by at most a few float32 ulps."""
+    keys, m, st = _spline("fb")
+    tm = model_from_numpy([np.asarray(a) for a in m], device="cpu")
+    r = np.random.default_rng(9)
+    q = np.sort(r.integers(int(keys[0]), int(keys[-1]), 1 << 15))
+    got = spline_lookup_plain(tm.table, tm.spline_keys, tm.spline_pos,
+                              torch.tensor(q), shift=36,
+                              n_iters=st.n_search_iters).numpy()
+    sk_hi, sk_lo = jops.split_key(m.spline_keys)
+    qh, ql = jops.split_key(jnp.asarray(q))
+    other = np.asarray(jref.spline_lookup_ref(
+        m.table, sk_hi, sk_lo, m.spline_pos.astype(jnp.float32), qh, ql, 36,
+        st.n_search_iters))
+    differ = got != other
+    assert differ.any()
+    assert np.abs(got - other).max() <= 4 * np.spacing(np.abs(got).max())
+
+
+# ---------------------------------------------------------------------------
+# K4 — tile search
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sorted_tiles", [True, False])
+def test_tile_search_plain_matches_pallas(sorted_tiles):
+    """K4's plain version equals ``tile_search_pallas`` exactly, on sorted
+    tiles and on unsorted ones (compare-count needs no order)."""
+    r = np.random.default_rng(int(sorted_tiles))
+    n_tiles = 6
+    tiles = r.integers(0, 1 << 48, (n_tiles, TILE)).astype(np.int64)
+    if sorted_tiles:
+        tiles = np.sort(tiles, axis=1)
+    q = r.integers(0, 1 << 48, (n_tiles, Q_BLK)).astype(np.int64)
+    q[0, :8] = tiles[0, :8]
+    q[1, 0], q[1, 1], q[2, 0] = I64_MAX, 0, tiles[2].max()
+    th, tl = jops.split_key(jnp.asarray(tiles))
+    qh, ql = jops.split_key(jnp.asarray(q))
+    want = np.asarray(tile_search_pallas(th, tl, qh, ql, interpret=True))
+    got = tile_search_plain(
+        torch.tensor(tiles.reshape(-1)), torch.tensor(q.reshape(-1)),
+        torch.arange(n_tiles), torch.arange(n_tiles + 1) * Q_BLK,
+    )
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().reshape(n_tiles, Q_BLK), want)
+
+
+def test_tile_search_passes_and_padding():
+    """A pass writes only its block of each segment; the last, partial
+    tile counts as padded with int64 max."""
+    r = np.random.default_rng(4)
+    cap = 2 * TILE + 100
+    slots = np.sort(r.integers(0, 1 << 40, cap)).astype(np.int64)
+    q = np.concatenate([np.full(Q_BLK + 10, I64_MAX),
+                        r.integers(0, 1 << 40, 7)]).astype(np.int64)
+    seg_tile = torch.tensor([2, 0])
+    seg_start = torch.tensor([0, Q_BLK + 10, len(q)])
+    args = (torch.tensor(slots), torch.tensor(q), seg_tile, seg_start)
+    first = tile_search_plain(*args, pass_idx=0)
+    assert (first[:Q_BLK] == TILE - 1).all()  # 100 keys + 1948 padding
+    assert (first[Q_BLK:Q_BLK + 10] == -1).all()  # not in pass 0
+    both = tile_search_plain(*args, pass_idx=1, out=first.clone())
+    assert (both[:Q_BLK + 10] == TILE - 1).all()
+    want = np.searchsorted(slots[:TILE], q[-7:], side="right") - 1
+    np.testing.assert_array_equal(both[-7:].numpy(), want)
+
+
+def _route_case(seed, cap, n):
+    r = np.random.default_rng(seed)
+    slots = np.sort(r.integers(0, 1 << 48, cap)).astype(np.int64)
+    q = np.concatenate([r.integers(0, 1 << 48, n - 2), [0, I64_MAX]])
+    q = q.astype(np.int64)
+    noise = r.integers(-300, 300, n)
+    pred = (np.searchsorted(slots, q) + noise).astype(np.float32)
+    pred[:3] = [-7.5, cap + 5000.0, 2047.9]  # clipped and truncated edges
+    return slots, q, pred
+
+
+@pytest.mark.parametrize("cap", [10_000, 30_000])
+def test_route_and_search_matches_jax(cap):
+    """Same ``ok`` and ``j`` as JAX's ``route_and_search`` when no tile
+    overflows, including predictions that need clipping and a cap that is
+    no multiple of the tile."""
+    slots, q, pred = _route_case(cap, cap, 1024)
+    jj, jok = jops.route_and_search(jnp.asarray(slots), jnp.asarray(q),
+                                    jnp.asarray(pred))
+    tj, tok = ops.route_and_search(torch.tensor(slots), torch.tensor(q),
+                                   torch.tensor(pred))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert tok.all()
+    np.testing.assert_array_equal(tj.numpy(), np.asarray(jj))
+    # where the prediction lands in the right tile, j is the global answer
+    right = np.searchsorted(slots, q, side="right") - 1
+    tile = np.clip(pred.astype(np.int64) // TILE, 0, (cap - 1) // TILE)
+    inside = (right >= tile * TILE - 1) & (right < (tile + 1) * TILE)
+    # int64 max also counts the padding of the last, partial tile
+    top = q == I64_MAX
+    np.testing.assert_array_equal(tj.numpy()[inside & ~top],
+                                  right[inside & ~top])
+    assert (tj.numpy()[top] == (tile[top] + 1) * TILE - 1).all()
+
+
+def test_route_and_search_overflowing_tile():
+    """600 queries all predicted into tile 0 of 4096 slots: ``ok`` equals
+    JAX's (the first 512 in batch order), and every ``ok`` ``j`` equals the
+    searchsorted oracle — including the query whose entry the reference's
+    overflow scatter overwrites (ROADMAP §3)."""
+    r = np.random.default_rng(13)
+    slots = np.sort(r.integers(0, 1 << 48, 4096)).astype(np.int64)
+    q = r.integers(0, 1 << 48, 600).astype(np.int64)
+    pred = np.zeros(600, np.float32)
+    jj, jok = jops.route_and_search(jnp.asarray(slots), jnp.asarray(q),
+                                    jnp.asarray(pred))
+    tj, tok = ops.route_and_search(torch.tensor(slots), torch.tensor(q),
+                                   torch.tensor(pred))
+    jok = np.asarray(jok)
+    np.testing.assert_array_equal(tok.numpy(), jok)
+    assert jok.sum() == Q_BLK and jok[:Q_BLK].all()
+    oracle = np.searchsorted(slots[:TILE], q, side="right") - 1
+    np.testing.assert_array_equal(tj.numpy()[jok], oracle[jok])
+    assert (tj.numpy()[~jok] == -1).all()
+    bad = np.nonzero(np.asarray(jj)[jok] != oracle[jok])[0]
+    assert list(bad) in ([], [Q_BLK - 1])  # the reference's one victim
+
+
+# ---------------------------------------------------------------------------
+# ops.bmat_rank, both routes
+# ---------------------------------------------------------------------------
+
+
+def _rank_buffer(r, cap, n, hi, fanout):
+    arr = np.full(cap, I64_MAX, np.int64)
+    arr[:n] = np.sort(r.integers(0, hi, n).astype(np.int64))
+    fences = np.concatenate([arr[::fanout], [I64_MAX]])
+    return arr, fences
+
+
+@pytest.mark.parametrize("cap,fanout", [(4096, 8), (4096, 64), (65536, 16)])
+def test_bmat_rank_k2_route_matches_jax(cap, fanout):
+    r = np.random.default_rng(cap + fanout)
+    arr, fences = _rank_buffer(r, cap, cap // 2, 1 << 48, fanout)
+    q = np.concatenate([r.integers(0, 1 << 48, 1000), r.choice(arr, 24),
+                        [0, I64_MAX]]).astype(np.int64)
+    got = ops.bmat_rank(torch.tensor(arr), torch.tensor(fences),
+                        torch.tensor(q), fanout)
+    want = np.asarray(jops.bmat_rank(jnp.asarray(arr), jnp.asarray(fences),
+                                     jnp.asarray(q), fanout))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.searchsorted(arr, q, "left"))
+
+
+def test_bmat_rank_tiled_route_matches_jax(monkeypatch):
+    """Above ``TILED_RANK_ABOVE`` keys the rank takes the tiled K4
+    composition, as the reference does, and stays exact under a
+    duplicated batch that needs more than one pass."""
+    r = np.random.default_rng(11)
+    cap = 2 * ops.TILED_RANK_ABOVE
+    n = cap - 777
+    arr, fences = _rank_buffer(r, cap, n, 1 << 52, 16)
+    q = np.concatenate([
+        r.integers(0, 1 << 52, 1024), r.choice(arr[:n], 512),
+        np.full(Q_BLK + 100, arr[5]),  # one tile, two passes
+        np.full(2 * Q_BLK + 3, arr[n - 1]),  # one tile, three passes
+        [0, 1, arr[0], arr[n - 1], 1 << 52, I64_MAX],
+    ]).astype(np.int64)
+    passes = []
+    plain = tmod.tile_search_plain
+
+    def spy(*a, **k):
+        passes.append(k["pass_idx"])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(tmod, "tile_search_plain", spy)
+    got = ops.bmat_rank(torch.tensor(arr), torch.tensor(fences),
+                        torch.tensor(q), 16)
+    assert passes == [0, 1, 2]
+    want = np.asarray(jops.bmat_rank(jnp.asarray(arr), jnp.asarray(fences),
+                                     jnp.asarray(q), 16))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.searchsorted(arr, q, "left"))
+
+
+def test_bmat_rank_tiled_on_a_ragged_last_tile():
+    """A buffer whose last tile is partial: the rank clips to cap."""
+    r = np.random.default_rng(12)
+    cap = ops.TILED_RANK_ABOVE + 1000
+    arr = np.sort(r.integers(0, 1 << 50, cap)).astype(np.int64)
+    fences = np.concatenate([arr[::16], [I64_MAX]])
+    q = np.concatenate([r.integers(0, 1 << 50, 700), arr[-3:],
+                        [arr[-1] + 1, I64_MAX]]).astype(np.int64)
+    got = ops.bmat_rank(torch.tensor(arr), torch.tensor(fences),
+                        torch.tensor(q), 16)
+    np.testing.assert_array_equal(got.numpy(), np.searchsorted(arr, q, "left"))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("domain", ["wikits", "wrap", "fb"])
+def test_spline_lookup_cuda_matches_plain(cuda, domain):
+    keys, m, st = _spline(domain)
+    tm = model_from_numpy([np.asarray(a) for a in m], device=cuda)
+    q = torch.tensor(_k5_queries(keys, int(m.shift), seed=1), device=cuda)
+    kw = dict(shift=int(m.shift), n_iters=st.n_search_iters)
+    got = spline_lookup(tm.table, tm.spline_keys, tm.spline_pos, q, **kw)
+    want = spline_lookup_plain(tm.table, tm.spline_keys, tm.spline_pos, q,
+                               **kw)
+    torch.cuda.synchronize()
+    _same_bits(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_spline_lookup_below_shift_32_launches_k5(cuda):
+    keys, m, st = _spline("wikits")
+    assert int(m.shift) < 32
+    tm = model_from_numpy([np.asarray(a) for a in m], device=cuda)
+    q = torch.tensor(keys[:100], device=cuda)
+    ops.reset_launch_counts()
+    ops.spline_lookup(tm.table, tm.spline_keys, tm.spline_pos, tm.shift, q,
+                      st.n_search_iters)
+    assert ops.launch_counts()["spline_lookup"] == 1
+
+
+@pytest.mark.gpu
+def test_tile_search_cuda_matches_plain(cuda):
+    slots, q, pred = _route_case(5, 30_000, 2048)
+    dup = np.full(Q_BLK + 40, slots[7])
+    q = np.concatenate([q, dup])
+    pred = np.concatenate([pred, np.zeros(len(dup), np.float32)])
+    ts, tq, tp = (torch.tensor(a, device=cuda) for a in (slots, q, pred))
+    ops.reset_launch_counts()
+    j, ok = ops.route_and_search(ts, tq, tp)
+    assert ops.launch_counts()["tile_search"] == 1
+    j0, ok0 = ops.route_and_search(ts.cpu(), tq.cpu(), tp.cpu())
+    np.testing.assert_array_equal(ok.cpu().numpy(), ok0.numpy())
+    np.testing.assert_array_equal(j.cpu().numpy(), j0.numpy())
+    k4_in = ops._route_tiles(ts, tq, tp)[3]
+    for p in range(2):
+        got = tile_search(ts, *k4_in, pass_idx=p)
+        want = tile_search_plain(ts, *k4_in, pass_idx=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -225,6 +225,9 @@ def test_replay_cap_differential_byte_identical():
 
 
 def test_router_needs_cuda_and_later_slices_raise(monkeypatch):
+    """Without CUDA the default device raises; on the CPU the range path
+    answers (it arrived with the third slice), and ``retrain_subset``,
+    which is not ported yet, raises."""
     from repro_torch.core.sharded import MixedWave
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -233,12 +236,14 @@ def test_router_needs_cuda_and_later_slices_raise(monkeypatch):
         ShardedUpLIF(keys)
     idx = ShardedUpLIF(keys, device="cpu", n_shards=2)
     assert idx._static().locate == "spline"  # "auto" on the CPU
-    for call in (lambda: idx.range_query(0, 10),
-                 lambda: idx.range_query_batch(keys[:2], keys[:2]),
-                 lambda: idx._vrange(),
-                 lambda: idx.adjusted_predict(keys[:4]),
-                 lambda: idx.apply_wave(None),
-                 lambda: idx.retrain_subset(),
-                 lambda: MixedWave()):
-        with pytest.raises(NotImplementedError):
-            call()
+    k, v = idx.range_query(int(keys[10]), int(keys[20]))
+    np.testing.assert_array_equal(k, keys[10:21])
+    np.testing.assert_array_equal(v, keys[10:21])
+    np.testing.assert_array_equal(idx.adjusted_predict(keys[:4]),
+                                  np.arange(4))
+    res = idx.apply_wave(MixedWave(lookup_keys=keys[:3]))
+    assert res.lookup_found.all() and res.delete_hit is None
+    with pytest.raises(ValueError, match="pad width"):
+        idx.lookup(keys[:300], pad_to=256)
+    with pytest.raises(NotImplementedError):
+        idx.retrain_subset()

@@ -2,9 +2,9 @@
 
 Both sides run the op tape of ``tests/test_locate_fused.py`` (drift-heavy
 hotspot inserts, in-batch duplicates, tombstone revivals, value updates).
-The contract is identity: lookup results, delete hit masks and final live
-contents, and also the slot and BMAT arrays byte for byte, because both
-sides do the same arithmetic. On the CPU the JAX fused strategy runs its
+The contract is identity: lookup results, delete hit masks, range rows,
+adjusted ranks and final live contents, and also the slot and BMAT arrays
+byte for byte, because both sides do the same arithmetic. On the CPU the JAX fused strategy runs its
 Pallas kernels in interpret mode and the port's runs the kernels' plain
 torch versions.
 """
@@ -21,6 +21,7 @@ from repro.core import UpLIF as JaxUpLIF
 from repro.core.uplif import UpLIFConfig as JaxConfig
 from repro_torch.core import UpLIF, UpLIFConfig
 from repro_torch.core.convert import uplif_from_numpy
+from repro_torch.core.types import KEY_MAX
 from tests.test_locate_fused import _tape
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -49,7 +50,31 @@ def _assert_same_arrays(a, b, what):
         np.testing.assert_array_equal(x, y, err_msg=f"{what}: array {i}")
 
 
-def _run_both(jidx, tidx, ops_tape, probes):
+def _range_bounds(base, ranges):
+    """The tape's ranges plus sorted ranges over the loaded keys, and
+    ranges past the domain, over everything, and inverted."""
+    r = np.random.default_rng(7)
+    starts = np.sort(r.choice(base, 12))
+    lo = np.concatenate([[a for a, _ in ranges], starts,
+                         [KEY_MAX - 5, 0, 9]])
+    hi = np.concatenate([[b for _, b in ranges], starts + (1 << 44),
+                         [KEY_MAX, KEY_MAX, 3]])
+    return lo, hi
+
+
+def _same_rows(a, b, what):
+    """Two (keys, vals) lists of range rows, byte for byte."""
+    assert len(a[0]) == len(b[0]), what
+    for i, (x, y) in enumerate(zip(a[0] + a[1], b[0] + b[1])):
+        assert np.asarray(x).dtype == np.asarray(y).dtype, f"{what}: row {i}"
+        np.testing.assert_array_equal(x, y, err_msg=f"{what}: row {i}")
+
+
+def _run_both(jidx, tidx, ops_tape, probes, bounds):
+    """The tape through both indexes; after every op the lookups, range
+    rows (``range_query_batch``, ``max_out`` 16 after the last op so rows
+    are cut) and ``adjusted_predict`` ranks must agree, and the arrays."""
+    lo, hi = bounds
     for step, op in enumerate(ops_tape):
         if op[0] == "insert":
             assert jidx.insert(op[1], op[2]) == tidx.insert(op[1], op[2])
@@ -62,7 +87,19 @@ def _run_both(jidx, tidx, ops_tape, probes):
         ft, vt = tidx.lookup(probes)
         np.testing.assert_array_equal(fj, ft, err_msg=f"found at op {step}")
         np.testing.assert_array_equal(vj, vt, err_msg=f"values at op {step}")
+        max_out = 16 if step == len(ops_tape) - 1 else 256
+        _same_rows(jidx.range_query_batch(lo, hi, max_out),
+                   tidx.range_query_batch(lo, hi, max_out),
+                   f"ranges at op {step}")
+        aj = np.asarray(jidx.adjusted_predict(probes))
+        at = tidx.adjusted_predict(probes)
+        assert aj.dtype == at.dtype
+        np.testing.assert_array_equal(aj, at, err_msg=f"ranks at op {step}")
         _assert_same_arrays(jidx, tidx, f"op {step}")
+    for a, b in zip(lo[:3], hi[:3]):
+        _same_rows([[x] for x in jidx.range_query(a, b, max_out=256)],
+                   [[x] for x in tidx.range_query(a, b, max_out=256)],
+                   "range_query")
     kj, vj = jidx.extract_live()
     kt, vt = tidx.extract_live()
     np.testing.assert_array_equal(kj, kt)
@@ -77,13 +114,13 @@ def _run_both(jidx, tidx, ops_tape, probes):
 @pytest.mark.parametrize("kind", ["rbmat", "b+mat"])
 @pytest.mark.parametrize("locate", ["fused", "spline", "binsearch"])
 def test_tape_matches_jax(locate, kind):
-    base, vals, ops_tape, probes, _ = _tape(0)
+    base, vals, ops_tape, probes, ranges = _tape(0)
     jidx = JaxUpLIF(base, vals, JaxConfig(locate=locate, bmat_type=kind))
     tidx = UpLIF(base, vals, UpLIFConfig(locate=locate, bmat_type=kind),
                  device="cpu")
     assert tidx.fstatic()._asdict() == jidx.fstatic()._asdict()
     _assert_same_arrays(jidx, tidx, "bulk load")
-    _run_both(jidx, tidx, ops_tape, probes)
+    _run_both(jidx, tidx, ops_tape, probes, _range_bounds(base, ranges))
 
 
 @pytest.mark.parametrize("kind", ["rbmat", "b+mat"])
@@ -103,19 +140,19 @@ def test_fused_above_f32_bound_matches_jax(kind, monkeypatch):
         return plain(*a, **k)
 
     monkeypatch.setattr(spline_lookup, "fused_locate_plain", spy)
-    base, vals, ops_tape, probes, _ = _tape(0)
+    base, vals, ops_tape, probes, ranges = _tape(0)
     jidx = JaxUpLIF(base, vals, JaxConfig(locate="spline", bmat_type=kind))
     tidx = UpLIF(base, vals, UpLIFConfig(locate="fused", bmat_type=kind),
                  device="cpu")
     assert tidx.capacity > ops.MAX_F32_POSITIONS
-    _run_both(jidx, tidx, ops_tape, probes)
+    _run_both(jidx, tidx, ops_tape, probes, _range_bounds(base, ranges))
     assert modes and all(modes)
 
 
 def test_bulk_load_byte_identical():
     """The port's own bulk load builds the JAX index's arrays, byte for
     byte, and the converter carries a JAX-built index over unchanged."""
-    base, vals, ops_tape, probes, _ = _tape(1)
+    base, vals, ops_tape, probes, ranges = _tape(1)
     cfg = dict(locate="fused", bmat_type="b+mat")
     jidx = JaxUpLIF(base, vals, JaxConfig(**cfg))
     tidx = UpLIF(base, vals, UpLIFConfig(**cfg), device="cpu")
@@ -137,7 +174,7 @@ def test_bulk_load_byte_identical():
         device="cpu",
     )
     _assert_same_arrays(jidx, conv, "converted")
-    _run_both(jidx, conv, ops_tape, probes)
+    _run_both(jidx, conv, ops_tape, probes, _range_bounds(base, ranges))
 
 
 def test_port_imports_no_jax():
@@ -199,7 +236,7 @@ def test_retrain_and_switch_match_jax(quantize):
     import jax.numpy as jnp
     from repro_torch.core.types import GMMState
 
-    base, vals, ops_tape, probes, _ = _tape(1)
+    base, vals, ops_tape, probes, ranges = _tape(1)
     cfg = dict(locate="fused", bmat_type="rbmat")
     jidx = JaxUpLIF(base, vals, JaxConfig(**cfg))
     tidx = UpLIF(base, vals, UpLIFConfig(**cfg), device="cpu")
@@ -218,7 +255,7 @@ def test_retrain_and_switch_match_jax(quantize):
     for idx in (jidx, tidx):
         idx.switch_bmat_type()
     assert tidx.bmat.tree_type == jidx.bmat.tree_type == "b+mat"
-    _run_both(jidx, tidx, ops_tape[3:], probes)
+    _run_both(jidx, tidx, ops_tape[3:], probes, _range_bounds(base, ranges))
     for modeled in (False, True):
         assert jidx.memory_bytes(modeled) == tidx.memory_bytes(modeled)
         assert jidx.index_bytes(modeled) == tidx.index_bytes(modeled)
