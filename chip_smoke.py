@@ -55,9 +55,11 @@ Imports only the port (``src/repro_torch``) and runs:
                 (shift 36): ``ops.spline_lookup`` (K5) on a 4096-query mix,
                 ``ops.route_and_search`` (K4) over the index's slot array with
                 those predictions, ``ops.bmat_rank`` over the slot keys (above
-                the reference's tiled-route size, so K4 in passes, with a
-                duplicated batch that needs four); K5 and K4 against their
-                plain versions (zero error), ``j`` and the ranks against
+                the reference's tiled-route size, so K4 over every pass in one
+                launch, with a duplicated batch that needs four): two K4
+                launches in all; K5 and K4 against their plain versions (zero
+                error; K4 on the route, on all the rank's passes at once and
+                on each pass alone), ``j`` and the ranks against
                 ``torch.searchsorted``;
  10. large index — all 8M wikits keys, a capacity above the float32
                 position bound: lookups and an insert wave go through K1's
@@ -72,16 +74,19 @@ Imports only the port (``src/repro_torch``) and runs:
  12. timing   — K1 and K2 on a main-path batch (one mixed wave's 2048 reads
                 and 2048 insert keys), K3 on one write-heavy router wave's
                 2048 insert keys, K5 on a 4096-query mix on each side of
-                shift 32, K4 in ``route_and_search`` at that batch and in one
-                pass of the tiled rank, warmed up: each kernel's device time
-                per launch (``ms``, from the profiler's device events), the
+                shift 32, K4 in ``route_and_search`` at that batch and in the
+                tiled rank's one launch, warmed up: each kernel's device time
+                per launch (``ms``, from the profiler's device events; for K4
+                and its library call with the L2 flushed by a read before each
+                launch, the warm time beside as ``warm_ms``), the
                 time per call of the entry the index calls (the ``ops``
                 adapter for K1, K3, K4 and K5, the wrapper for K2), between
                 CUDA events (``call_ms``, host dispatch included), its plain
                 version's and a one-call PyTorch yardstick's device time
                 (none exists for K3 and K5), and the bound, printed as one
-                JSON line; and the tiled rank route against K2 on the same
-                10.5M-key buffer.
+                JSON line; the BMAT's cap, nf and fanout beside K2's time, the
+                device time of one trivial launch (the launch floor), and the
+                tiled rank route against K2 on the same 10.5M-key buffer.
 
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives them per path (``launches_by_path``) and summed.
@@ -100,7 +105,7 @@ parameters and the [N, K] output once, and the operations are 11 per sample
 and component. For K4, bytes are the queries, the outputs, the segment
 arrays and every key of each tile a query routes to (the function counts
 over the whole tile), and the operations are 2048 compares per query the
-pass searches.
+launch searches.
 """
 from __future__ import annotations
 
@@ -116,6 +121,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12
+L2_FLUSH_BYTES = 128 << 20  # read or written between cold launches
 F32_OPS_PER_S = 67e12
 BATCH = 4096
 N_KEYS = 8_000_000          # wikits keys generated; half are bulk-loaded
@@ -592,10 +598,25 @@ def read_footprint(torch, plain, args, kw, arrays) -> int:
     )
 
 
+def _per_call_ms(events, iters: int, skip=()) -> float:
+    """Device ms per call from the profiler's device events of ``iters``
+    calls, leaving out the events whose name holds a string of ``skip``:
+    per kernel name, the mean duration times its launches per call (its
+    event count over ``iters``, rounded). The profiler on the H100 machine
+    drops a share of the events in some sessions (up to 12% seen); this
+    sum does not count a dropped launch as a launch that took no time."""
+    by_name = {}
+    for e in events:
+        if not any(m in e.name for m in skip):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(float(np.mean(v)) * max(1, round(len(v) / iters))
+               for v in by_name.values()) / 1e3
+
+
 def device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the sum of the profiler's device events (the
-    kernels and copies the call ran) over ``iters`` calls, divided by
-    ``iters``. Host dispatch between launches is not counted."""
+    """Device time per call: the profiler's device events (the kernels and
+    copies the call ran) over ``iters`` calls, per call (``_per_call_ms``).
+    Host dispatch between launches is not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,10 +628,42 @@ def device_ms(torch, fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    require(us, "the profiler saw no device time")
-    return sum(us) / 1e3 / iters
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(dev, "the profiler saw no device time")
+    return _per_call_ms(dev, iters)
+
+
+def cold_ms(torch, fn, iters: int, flush: str = "read") -> float:
+    """Device time per call as ``device_ms`` counts it, with the L2 flushed
+    before every call by an op over ``L2_FLUSH_BYTES`` (over twice the
+    H100's 50 MB L2): a ``"read"`` (a sum, which leaves clean lines of its
+    own in the L2) or a ``"write"`` (a fill, which leaves dirty lines that
+    the timed call writes back as it evicts them). The flush's device events
+    are known by name and left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
+    step, marks = {
+        "read": (lambda i: buf.sum(), ("sum_functor", "Memset")),
+        "write": (lambda i: buf.fill_(i), ("FillFunctor<long>",)),
+    }[flush]
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            step(i)
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    n_flush = sum(marks[0] in e.name for e in dev)
+    n_call = sum(not any(m in e.name for m in marks) for e in dev)
+    require(n_flush >= iters // 2 and n_call >= iters // 2,
+            f"cold timing: the profiler saw {n_flush} flushes and {n_call} "
+            f"device events of the call for {iters} calls")
+    return _per_call_ms(dev, iters, marks)
 
 
 def call_ms(torch, fn, iters: int) -> float:
@@ -675,7 +728,7 @@ def kernel_timing(torch, index, queries):
             k2_bytes, bound_ms(k2_bytes, 0),
         ),
     }
-    return {
+    timing = {
         name: dict(
             ms=device_ms(torch, kern, 200),
             call_ms=call_ms(torch, adapter, 200),
@@ -686,6 +739,16 @@ def kernel_timing(torch, index, queries):
         )
         for name, (kern, adapter, plain, lib, n_bytes, bound) in calls.items()
     }
+    # the device time of one trivial launch: how much of a small kernel's
+    # time is the launch and not its work
+    x = torch.zeros(BATCH, dtype=torch.int64, device=q.device)
+    floor = device_ms(torch, lambda: x.add_(1), 200)
+    print(f"K2 timing: BMAT cap {k2['kw']['cap']}, nf {k2['kw']['nf']}, "
+          f"fanout {k2['kw']['fanout']}, {n} queries: "
+          f"{timing['bmat_rank']['ms']:.5f} ms per launch (torch.searchsorted "
+          f"{timing['bmat_rank']['library_ms']:.5f} ms); one trivial launch "
+          f"(add_ on {BATCH} int64) {floor:.5f} ms", flush=True)
+    return timing
 
 
 def k3_args(torch, fc, keys):
@@ -994,9 +1057,9 @@ def run_kernel_api(torch, index, live, label, seed):
     r = ops.bmat_rank(sk, fences, qq, 16)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    n_pass = ops._rank_tiles(sk, qq)[3]
-    require(counts["spline_lookup"] == 1 and counts["tile_search"] == 1 + n_pass,
-            f"{label}: K5 / K4 launches {counts} (rank passes {n_pass})")
+    require(counts["spline_lookup"] == 1 and counts["tile_search"] == 2,
+            f"{label}: K5 / K4 launches {counts} (K4: the route and one "
+            f"launch for every pass of the tiled rank)")
 
     shift = int(m.shift)
     p0 = spline_lookup_plain(m.table, m.spline_keys, m.spline_pos, q,
@@ -1004,13 +1067,17 @@ def run_kernel_api(torch, index, live, label, seed):
     k5_err = float((p - p0).abs().max())
     require(torch.equal(p.view(torch.int32), p0.view(torch.int32)),
             f"{label}: K5 differs from its plain version")
+    # K4 on the route's pass, then on the tiled rank: all passes in one
+    # launch, and every pass on its own
+    route_in = ops._route_tiles(sk, q, p)[3]
+    rank_in = ops._rank_tiles(sk, qq)[2]
+    n_pass = n_passes(torch, rank_in[2])
     k4_err = 0
-    for k4_in, passes in ((ops._route_tiles(sk, q, p)[3], 1),
-                          ops._rank_tiles(sk, qq)[2:]):
-        for pas in range(passes):
-            got = tile_search(sk, *k4_in, pass_idx=pas)
-            want = tile_search_plain(sk, *k4_in, pass_idx=pas)
-            k4_err = max(k4_err, int((got - want).abs().max()))
+    for k4_in, lo, hi in ((route_in, 0, 1), (rank_in, 0, n_pass),
+                          *((rank_in, pas, pas + 1) for pas in range(n_pass))):
+        got = tile_search(sk, *k4_in, pass_idx=lo, pass_hi=hi)
+        want = tile_search_plain(sk, *k4_in, pass_idx=lo, pass_hi=hi)
+        k4_err = max(k4_err, int((got - want).abs().max()))
     require(k4_err == 0, f"{label}: K4 differs from its plain version")
     right = torch.searchsorted(sk, q, right=True) - 1
     tile = torch.clamp(p.to(torch.int64) // ops.TILE, 0,
@@ -1029,11 +1096,24 @@ def run_kernel_api(torch, index, live, label, seed):
     return k4_err, k5_err, counts, n_pass
 
 
+def n_passes(torch, seg_start) -> int:
+    """Passes of ``Q_BLK`` queries that the largest segment needs (a host
+    read; the tiled rank itself launches once without it)."""
+    from repro_torch.kernels import ops
+
+    size = int((seg_start[1:] - seg_start[:-1]).max())
+    return max(1, -(-size // ops.Q_BLK))
+
+
 def api_timing(torch, wikits, fb, wikits_live, fb_live):
     """K5 at a BATCH-query mix on both sides of shift 32, K4 in
-    ``route_and_search`` at that batch (the kernel's own launch) and in one
-    pass of the tiled rank, and the tiled rank route against K2 on the same
-    slot-key buffer."""
+    ``route_and_search`` at that batch (the kernel's own launch, into a
+    buffer allocated once) and in the tiled rank's one launch, and the
+    tiled rank route against K2 on the same slot-key buffer. K4 and its
+    library call are timed cold (``cold_ms``, the L2 flushed by a read
+    before each launch): the route's real caller finds its slot array
+    (84 MB) out of the 50 MB L2. The times after a write flush and warm are
+    printed beside."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.bmat_rank import bmat_rank
     from repro_torch.kernels.spline_lookup import (
@@ -1082,23 +1162,36 @@ def api_timing(torch, wikits, fb, wikits_live, fb_live):
     n_ok = int(torch.clamp(route[2][1:] - route[2][:-1], max=ops.Q_BLK).sum())
     route_bytes = k4_bytes(*route, n_ok)
     fences = _fences(torch, sk)
-    rq, rtile, rstart = ops._rank_tiles(sk, q)[2]
-    n_ok_r = int(torch.clamp(rstart[1:] - rstart[:-1], max=ops.Q_BLK).sum())
-    rank_bytes = k4_bytes(rq, rtile, rstart, n_ok_r)
+    rank_in = ops._rank_tiles(sk, q)[2]
+    rank_hi = -(-q.shape[0] // ops.Q_BLK)  # as ``_bmat_rank_tiled`` asks
+    rank_bytes = k4_bytes(*rank_in, q.shape[0])
+    out = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    x = torch.zeros(BATCH, dtype=torch.int64, device=q.device)
+    calls = {
+        "launch_floor": lambda: x.add_(1),
+        "route": lambda: tile_search(sk, *route, pass_idx=0, out=out),
+        "rank": lambda: tile_search(sk, *rank_in, pass_idx=0, pass_hi=rank_hi,
+                                    out=out),
+        "library": lambda: torch.searchsorted(sk, q, right=True) - 1,
+    }
+    cold = {k: cold_ms(torch, fn, 200) for k, fn in calls.items()}
+    cold_w = {k: cold_ms(torch, fn, 200, "write") for k, fn in calls.items()}
+    warm = {k: device_ms(torch, fn, 200) for k, fn in calls.items()}
+    print("K4 timing (ms per launch; L2 flushed by a read before each / by a "
+          "write / warm): " + json.dumps(
+              {k: [cold[k], cold_w[k], warm[k]] for k in calls}), flush=True)
     k4 = dict(
-        ms=device_ms(torch, lambda: tile_search(sk, *route, pass_idx=0), 200),
+        ms=cold["route"], warm_ms=warm["route"],
         call_ms=call_ms(torch, lambda: ops.route_and_search(sk, q, p), 200),
         plain_ms=device_ms(torch, lambda: tile_search_plain(
             sk, *route, pass_idx=0), 5),
-        library_ms=device_ms(torch, lambda: torch.searchsorted(
-            sk, q, right=True) - 1, 200),
+        library_ms=cold["library"], library_warm_ms=warm["library"],
         bytes=route_bytes,
         bound=bound_ms(route_bytes, n_ok * ops.TILE),
         rank_pass=dict(
-            ms=device_ms(torch, lambda: tile_search(
-                sk, rq, rtile, rstart, pass_idx=0), 200),
+            ms=cold["rank"], warm_ms=warm["rank"],
             bytes=rank_bytes,
-            bound=bound_ms(rank_bytes, n_ok_r * ops.TILE),
+            bound=bound_ms(rank_bytes, q.shape[0] * ops.TILE),
         ),
     )
     routes = {
@@ -1474,7 +1567,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_bytes": t["bytes"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
-            **({"variants": t["variants"]} if "variants" in t else {}),
+            **{k: t[k] for k in ("warm_ms", "library_warm_ms", "variants")
+               if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Time the port's K2 (BMAT rank) and K4 (tile search) kernels of two source
+trees in turns on one GPU.
+
+    python3 kernel_ab.py OTHER_TREE [--out PATH]
+
+``OTHER_TREE`` is the root of another checkout of this repository, for
+example a ``git archive`` of an earlier commit unpacked under ``build/``.
+This tree makes the inputs once, as ``chip_smoke.py`` makes them: the 4M-key
+wikits index after the single-index main path (four mixes of 200 waves and
+the delete phase), K2's main-path batch (one mixed wave's 2048 reads and
+2048 insert keys) on its BMAT, and K4's route batch (a 4096-query mix routed
+by ``ops.spline_lookup`` over the index's 10.5M-slot array) and a rank batch
+with duplicated runs. Then each timing runs in a fresh process that imports
+``repro_torch`` from one tree (building that tree's kernels into its own
+``build/``), in the order OTHER, THIS, THIS, OTHER, and prints one JSON line:
+
+  * ``k2_ms``: K2's device time per launch (profiler device events, warm:
+    the main path ranks the same BMAT every wave), ``k2_call_ms`` through
+    the wrapper between CUDA events, ``k2_library_ms`` for
+    ``torch.searchsorted(keys, q)``;
+  * ``k4_cold_ms`` / ``k4_cold_write_ms`` / ``k4_warm_ms``: K4's route
+    launch with the L2 flushed before each launch by a read / by a write
+    (``chip_smoke.cold_ms``) / warm, and ``k4_library_cold_ms`` /
+    ``k4_library_cold_write_ms`` for ``torch.searchsorted(slots, q,
+    right=True) - 1``;
+  * ``tiled_rank_device_ms`` / ``tiled_rank_call_ms``: ``ops.bmat_rank`` over
+    the slot array on the rank batch (every K4 launch it makes, and the
+    host's part), with its K4 launches per call;
+  * ``floor_ms`` / ``floor_cold_ms``: one trivial launch (``add_`` on 4096
+    int64), warm and after the read flush.
+
+Every run's outputs (K2's ranks, K4's route entries, the tiled ranks) must
+equal the first run's. The summary goes to stdout and to ``--out`` (by
+default ``build/kernel_ab/summary.json``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "kernel_ab"
+
+
+def make_inputs(path: Path) -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import UpLIF
+    from repro_torch.data import WorkloadRunner, make_dataset
+    from repro_torch.kernels import ops
+
+    keys = make_dataset("wikits", cs.N_KEYS)
+    runner = WorkloadRunner(keys, init_frac=0.5, batch=cs.BATCH, seed=0)
+    index = UpLIF(runner.init_keys, runner.init_keys + 1)
+    _, _, live = cs.run_main_path(torch, index, runner, cs.WAVES,
+                                  cs.DELETE_WAVES)
+    batch = np.concatenate(runner.next_batch(0.5))
+    k2 = cs.kernel_inputs(torch, index, batch)[1]
+    m, st = index.rs_model, index.rs_static
+    sk = index.slots.keys
+    q, qq = cs.api_batches(torch, index, live, 21)
+    p = ops.spline_lookup(m.table, m.spline_keys, m.spline_pos, m.shift, q,
+                          st.n_search_iters)
+    route = ops._route_tiles(sk, q, p)[3]
+    cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    torch.save(dict(
+        k2_args=cpu(k2["args"]), k2_kw=k2["kw"], slots=sk.cpu(),
+        route=cpu(route), route_q=q.cpu(), rank_q=qq.cpu(),
+        fences=cs._fences(torch, sk).cpu(),
+    ), path)
+    print(f"inputs: BMAT cap {k2['kw']['cap']}, nf {k2['kw']['nf']}, fanout "
+          f"{k2['kw']['fanout']}; {sk.shape[0]} slots, "
+          f"{route[1].shape[0]} segments, rank batch {qq.shape[0]}",
+          flush=True)
+
+
+def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
+    import torch
+
+    import chip_smoke as cs
+
+    sys.path.insert(0, str(tree / "src"))
+    import repro_torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.bmat_rank import bmat_rank
+    from repro_torch.kernels.tile_search import tile_search
+
+    cs.require(Path(repro_torch.__file__).resolve().is_relative_to(
+        tree.resolve()), f"imported {repro_torch.__file__}, not {tree}")
+    build.library()
+    d = {k: (v.cuda() if torch.is_tensor(v) else
+             [t.cuda() for t in v] if isinstance(v, list) else v)
+         for k, v in torch.load(inputs).items()}
+    k2_args, kw, sk = d["k2_args"], d["k2_kw"], d["slots"]
+    bkeys, q2 = k2_args[0], k2_args[2]
+    out = torch.empty(d["route_q"].shape[0], dtype=torch.int32, device="cuda")
+    x = torch.zeros(cs.BATCH, dtype=torch.int64, device="cuda")
+    k2 = lambda: bmat_rank(*k2_args, **kw)  # noqa: E731
+    k4 = lambda: tile_search(sk, *d["route"], pass_idx=0, out=out)  # noqa: E731
+    lib4 = lambda: torch.searchsorted(sk, d["route_q"], right=True) - 1  # noqa: E731
+    tiled = lambda: ops.bmat_rank(sk, d["fences"], d["rank_q"], 16)  # noqa: E731
+
+    ops.reset_launch_counts()
+    ranks = tiled()
+    torch.cuda.synchronize()
+    tiled_k4 = ops.launch_counts()["tile_search"]
+    out.fill_(-7)
+    k4()
+    torch.save(dict(k2=k2().cpu(), k4=out.cpu(), tiled=ranks.cpu()), outputs)
+    res = {
+        "tree": str(tree), "card": cs.card_line(),
+        "k2_ms": cs.device_ms(torch, k2, 500),
+        "k2_call_ms": cs.call_ms(torch, k2, 500),
+        "k2_library_ms": cs.device_ms(
+            torch, lambda: torch.searchsorted(bkeys, q2), 500),
+        "k4_cold_ms": cs.cold_ms(torch, k4, 200),
+        "k4_cold_write_ms": cs.cold_ms(torch, k4, 200, "write"),
+        "k4_warm_ms": cs.device_ms(torch, k4, 200),
+        "k4_library_cold_ms": cs.cold_ms(torch, lib4, 200),
+        "k4_library_cold_write_ms": cs.cold_ms(torch, lib4, 200, "write"),
+        "tiled_rank_device_ms": cs.device_ms(torch, tiled, 50),
+        "tiled_rank_call_ms": cs.call_ms(torch, tiled, 50),
+        "tiled_rank_k4_launches": tiled_k4,
+        "floor_ms": cs.device_ms(torch, lambda: x.add_(1), 500),
+        "floor_cold_ms": cs.cold_ms(torch, lambda: x.add_(1), 200),
+    }
+    print(json.dumps(res), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, nargs="?")
+    ap.add_argument("--out", type=Path, default=WORK / "summary.json")
+    ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--outputs", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device available", file=sys.stderr)
+        return 2
+    WORK.mkdir(parents=True, exist_ok=True)
+    inputs = WORK / "inputs.pt"
+    if args.time is not None:
+        time_tree(args.time, inputs, args.outputs)
+        return 0
+    if args.other is None or not (args.other / "src" / "repro_torch").is_dir():
+        ap.error("OTHER_TREE must be a checkout with src/repro_torch")
+    make_inputs(inputs)
+    runs = []
+    for k, tree in enumerate((args.other, ROOT, ROOT, args.other)):
+        outputs = WORK / f"outputs{k}.pt"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time",
+             str(tree.resolve()), "--outputs", str(outputs)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+        first = torch.load(WORK / "outputs0.pt")
+        got = torch.load(outputs)
+        for name in first:
+            if not torch.equal(first[name], got[name]):
+                print(f"kernel_ab: run {k} differs on {name}", file=sys.stderr)
+                return 1
+    metrics = [k for k, v in runs[0].items() if isinstance(v, (int, float))]
+    summary = {
+        "order": ["other", "this", "this", "other"],
+        "other": str(args.other), "card": runs[0]["card"],
+        "runs": {m: [r[m] for r in runs] for m in metrics},
+        "median_other": {m: statistics.median([runs[0][m], runs[3][m]])
+                         for m in metrics},
+        "median_this": {m: statistics.median([runs[1][m], runs[2][m]])
+                        for m in metrics},
+    }
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(summary, indent=1))
+    print("kernel_ab " + json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,8 +7,10 @@ the fences, then a bisect inside one node — returning the shard-local rank
 in ``[0, cap]``.
 
 The CUDA source is ``csrc/bmat_rank.cu``; its header says what bounds it on
-the H100 (dependent random 8-byte reads, i.e. latency) and what the
-one-thread-per-query design does about it. ``bmat_rank`` below launches it
+the H100 (dependent reads from L2, then the launch) and what its design (a
+warp per query, a 32-ary fence search and one ballot over the node) does
+about it. Its node round reads at most ``MAX_FANOUT`` keys, so the wrapper
+refuses a larger fanout on every device. ``bmat_rank`` below launches it
 for CUDA tensors and runs ``bmat_rank_plain`` for CPU tensors;
 ``bmat_rank.launches`` counts the CUDA launches.
 """
@@ -19,6 +21,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import key_lt
+
+MAX_FANOUT = 64  # keys per node that the kernel's node round reads
 
 
 def bmat_rank_plain(keys, fences, queries, sid=None, *, cap: int, nf: int,
@@ -52,7 +56,10 @@ def bmat_rank_plain(keys, fences, queries, sid=None, *, cap: int, nf: int,
 def bmat_rank(keys, fences, queries, sid=None, *, cap: int, nf: int,
               fanout: int):
     """K2: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Same contract as ``bmat_rank_plain``."""
+    tensors. Same contract as ``bmat_rank_plain``, for a fanout of at most
+    ``MAX_FANOUT``."""
+    if not 1 <= fanout <= MAX_FANOUT:
+        raise ValueError(f"K2 takes a fanout of 1 to {MAX_FANOUT}, got {fanout}")
     if queries.device.type == "cpu":
         return bmat_rank_plain(keys, fences, queries, sid, cap=cap, nf=nf,
                                fanout=fanout)

@@ -47,8 +47,10 @@ SIGNATURES = {
     # table, knots, knot_pos, queries, out, n, n_table, n_knots, shift,
     # n_iters, split, stream
     "spline_lookup_launch": [_P] * 5 + [_I] * 6 + [_P],
-    # slots, queries, seg_tile, seg_start, out, n_seg, cap, pass, stream
-    "tile_search_launch": [_P] * 5 + [_I, ctypes.c_longlong, _I, _P],
+    # slots, queries, seg_tile, seg_start, out, n_seg, n, cap, pass_lo,
+    # pass_hi, stream
+    "tile_search_launch": [_P] * 5 + [_I] + [ctypes.c_longlong] * 2
+                          + [_I, _I, _P],
 }
 
 

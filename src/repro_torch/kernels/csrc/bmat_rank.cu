@@ -2,74 +2,91 @@
 // over the packed sorted BMAT keys, through the two-level fence tree.
 //
 // Replaces the TPU kernel bmat_rank_offset_pallas
-// (src/repro/kernels/bmat_rank.py). Same search, step for step:
-//   1. ceil(log2(nf + 1)) steps of bisect over the fence array (every
-//      fanout-th key plus a trailing KEY_MAX) for the first fence >= q;
-//   2. ceil(log2(fanout + 1)) steps of bisect inside the located node;
-//   3. result min(rank, cap), shard-local.
+// (src/repro/kernels/bmat_rank.py). Same function: the first fence >= q
+// (the fences are every fanout-th key plus a trailing KEY_MAX), then the
+// first key >= q inside the located node (f - 1, f], then min(rank, cap),
+// shard-local. The BMAT keeps its keys packed and sorted with KEY_MAX
+// padding, so any exact search that finds the same fence and the same key
+// gives the Pallas kernel's and both plain traversals' answer (RBMAT
+// descent, B+MAT fences); the reference bisects, this kernel does not.
 // Queries may carry a shard id, from which the kernel derives the flat key
 // and fence bases (kbase = sid * cap, fbase = sid * nf), so S stacked BMATs
-// rank in one launch; a single BMAT passes a null sid (shard 0). The search is
-// exact integer arithmetic on native int64 keys, so it equals the TPU
-// kernel and both plain traversals (RBMAT descent, B+MAT fences) exactly.
+// rank in one launch; a single BMAT passes a null sid (shard 0).
 //
-// What bounds it on the H100: a chain of dependent random 8-byte reads
-// (fences, then one node), latency rather than bandwidth. This first design
-// is one thread per query in 256-thread blocks, arrays in HBM behind the
-// read-only path, the ragged edge masked here. Fences in shared memory and
-// sorted queries are later work.
+// What bounds it on the H100: neither bytes nor operations (a 4096-query
+// batch reads about 0.2 MB), but the chain of dependent reads from L2, and
+// below that the launch itself. A bisect per thread walks
+// ceil(log2(nf + 1)) + ceil(log2(fanout + 1)) reads one after another
+// (20 on the main path's BMAT: nf 16,385, fanout 16) in 16 CTAs. The
+// design cuts the chain and fills the card:
+//   * a warp per query, 8 queries per 256-thread CTA (512 CTAs for 4096
+//     queries);
+//   * a 32-ary search over the fences: the warp holds the range [lo, hi]
+//     of the first fence >= q; each round lane l reads the fence at
+//     lo + (l + 1) * step - 1 (clamped to hi), step = ceil((hi - lo + 1) /
+//     32), and __popc(__ballot_sync(fence < q)) narrows the range to one
+//     step, until it holds one fence: ceil(log32 nf) dependent reads;
+//   * one round over the node [node_lo, min(node_lo + fanout, kend)): the
+//     lanes read its keys (one each for fanout <= 32, two for 64) and
+//     __popc(__ballot_sync(key < q)) is the rank inside it;
+//   * the arrays are read through the read-only path.
+// So a query takes ceil(log32 nf) + 1 dependent reads (4 on the main
+// path's BMAT) instead of 20. What is left is L2 latency and the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void __launch_bounds__(256) bmat_rank_kernel(
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxFanout = 64;  // the node round reads two keys per lane
+
+__global__ void __launch_bounds__(kThreads) bmat_rank_kernel(
     const long long* __restrict__ keys,     // [S * cap]
     const long long* __restrict__ fences,   // [S * nf]
     const long long* __restrict__ queries,  // [n]
     const long long* __restrict__ sid,      // [n], or null: all shard 0
     long long* __restrict__ out,            // [n]
-    int n, int cap, int nf, int fanout, int fence_iters, int node_iters) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const long long q = queries[i];
-    const long long s_id = sid ? sid[i] : 0;
+    int n, int cap, int nf, int fanout) {
+    const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (i >= n) return;  // the same for every lane of the warp
+    const int lane = threadIdx.x & 31;
+    const long long q = __ldg(queries + i);
+    const long long s_id = sid ? __ldg(sid + i) : 0;
     const long long kbase = s_id * (long long)cap;
     const long long fbase = s_id * (long long)nf;
 
-    // 1. first fence >= q; mid <= fbase + nf - 1 holds throughout
+    // 1. the first fence >= q lies in [lo, hi]
     long long lo = fbase;
     long long hi = fbase + (nf - 1);
-    for (int it = 0; it < fence_iters; ++it) {
-        const long long mid = (lo + hi) >> 1;
-        const bool go = fences[mid] < q;
-        lo = go ? mid + 1 : lo;
-        hi = go ? hi : mid;
+    while (lo < hi) {  // the same for every lane
+        const long long step = (hi - lo + 32) >> 5;
+        long long at = lo + (lane + 1) * step - 1;
+        at = at < hi ? at : hi;
+        const int below = __popc(__ballot_sync(0xFFFFFFFFu,
+                                               __ldg(fences + at) < q));
+        // the probes are sorted, so `below` of them lie under q; lane 31
+        // probes hi, which is >= q
+        const long long nlo = lo + below * step;
+        const long long nhi = nlo + step - 1;
+        lo = nlo < hi ? nlo : hi;
+        hi = nhi < hi ? nhi : hi;
     }
 
-    // 2. bisect inside node (f - 1, f]
+    // 2. the rank inside node (f - 1, f]
     const long long f = lo - fbase - 1;
     const long long node_lo = kbase + (f > 0 ? f : 0) * fanout;
     const long long kend = kbase + cap;
-    const long long kcap = kend - 1;
-    long long nlo = node_lo;
-    long long nhi = node_lo + fanout < kend ? node_lo + fanout : kend;
-    for (int it = 0; it < node_iters; ++it) {
-        const long long mid = (nlo + nhi) >> 1;
-        const long long midc = mid < kcap ? mid : kcap;
-        const bool go = keys[midc] < q;
-        nlo = go ? mid + 1 : nlo;
-        nhi = go ? nhi : mid;
-    }
-    const long long r = nlo - kbase;
-    out[i] = r < cap ? r : cap;
-}
-
-int ceil_log2(int x) {  // ceil(log2 x) for x >= 1
-    int k = 0;
-    while ((1LL << k) < x) ++k;
-    return k;
+    const long long node_hi = node_lo + fanout < kend ? node_lo + fanout : kend;
+    const long long k0 = node_lo + lane;
+    const long long k1 = k0 + 32;
+    const bool lt0 = k0 < node_hi && __ldg(keys + k0) < q;
+    const bool lt1 = k1 < node_hi && __ldg(keys + k1) < q;
+    const long long r = node_lo - kbase
+        + __popc(__ballot_sync(0xFFFFFFFFu, lt0))
+        + __popc(__ballot_sync(0xFFFFFFFFu, lt1));
+    if (lane == 0) out[i] = r < cap ? r : cap;
 }
 
 }  // namespace
@@ -79,11 +96,12 @@ extern "C" int bmat_rank_launch(
     const void* sid, void* out, int n, int cap, int nf, int fanout,
     void* stream) {
     if (n <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    bmat_rank_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    if (fanout < 1 || fanout > kMaxFanout || nf < 1 || cap < 1)
+        return (int)cudaErrorInvalidValue;
+    const int blocks = (n + kWarps - 1) / kWarps;
+    bmat_rank_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const long long*)keys, (const long long*)fences,
         (const long long*)queries, (const long long*)sid, (long long*)out,
-        n, cap, nf, fanout, ceil_log2(nf + 1), ceil_log2(fanout + 1));
+        n, cap, nf, fanout);
     return (int)cudaGetLastError();
 }

@@ -116,11 +116,10 @@ def _tile_buckets(tile_id, block: int):
 
 
 def _segments(t_sorted, n_tiles: int):
-    """K4's segment arrays for tile-sorted queries: ``seg_tile`` [G],
+    """K4's segment arrays for tile-sorted queries: ``seg_tile`` [G] and
     ``seg_start`` [G + 1] with G = min(n, n_tiles) (unused trailing
-    segments start at n), and each query's index within its segment. Built
-    on the device, with no host sync; masked-out writes go to one spare
-    trailing entry that is cut off."""
+    segments start at n). Built on the device, with no host sync;
+    masked-out writes go to one spare trailing entry that is cut off."""
     n = t_sorted.shape[0]
     dev = t_sorted.device
     G = max(1, min(n, n_tiles))
@@ -132,8 +131,7 @@ def _segments(t_sorted, n_tiles: int):
     seg_start = seg_start[:G + 1]
     seg_tile = torch.zeros(G + 1, dtype=torch.int64, device=dev)
     seg_tile[torch.where(first, seg, G)] = t_sorted
-    within = torch.arange(n, device=dev) - seg_start[seg]
-    return seg_tile[:G], seg_start, within
+    return seg_tile[:G], seg_start
 
 
 def _n_tiles(cap: int) -> int:
@@ -147,7 +145,7 @@ def _route_tiles(slot_keys, queries, pred_pos):
     n_tiles = _n_tiles(slot_keys.shape[0])
     tile_id = torch.clamp(pred_pos.to(torch.int64) // TILE, 0, n_tiles - 1)
     order, t_sorted, _, ok = _tile_buckets(tile_id, Q_BLK)
-    seg_tile, seg_start, _ = _segments(t_sorted, n_tiles)
+    seg_tile, seg_start = _segments(t_sorted, n_tiles)
     return order, t_sorted, ok, (queries[order], seg_tile, seg_start)
 
 
@@ -172,18 +170,16 @@ def route_and_search(slot_keys, queries, pred_pos):
 
 
 def _rank_tiles(keys, queries):
-    """``_bmat_rank_tiled``'s routing: (order, t_sorted), K4's inputs
-    (the tile-sorted ``q - 1``, ``seg_tile``, ``seg_start``) and the number
-    of passes (one host read)."""
+    """``_bmat_rank_tiled``'s routing: (order, t_sorted) and K4's inputs
+    (the tile-sorted ``q - 1``, ``seg_tile``, ``seg_start``)."""
     n_tiles = _n_tiles(keys.shape[0])
     qm1 = queries - 1  # keys are non-negative: q - 1 >= -1 orders below all
     firsts = keys[::TILE].contiguous()
     tile_id = torch.clamp(
         torch.searchsorted(firsts, qm1, right=True) - 1, 0, n_tiles - 1)
     order, t_sorted, _, _ = _tile_buckets(tile_id, Q_BLK)
-    seg_tile, seg_start, within = _segments(t_sorted, n_tiles)
-    n_pass = int(within.max()) // Q_BLK + 1 if queries.shape[0] else 0
-    return order, t_sorted, (qm1[order], seg_tile, seg_start), n_pass
+    seg_tile, seg_start = _segments(t_sorted, n_tiles)
+    return order, t_sorted, (qm1[order], seg_tile, seg_start)
 
 
 def _bmat_rank_tiled(keys, queries):
@@ -193,13 +189,14 @@ def _bmat_rank_tiled(keys, queries):
     runs K4 on ``q - 1`` (searchsorted-left rank = 1 + index of the last
     key <= q - 1). As in the reference, one pass takes at most ``Q_BLK``
     queries per tile, so a batch that piles more onto one tile runs further
-    passes; the loop runs on the device after one host read of the pass
-    count. Returns the int32 rank, at most ``cap``."""
+    passes. One K4 launch runs them all: no segment holds more than ``n``
+    queries, so ``ceil(n / Q_BLK)`` passes bound every segment, and no host
+    read of the pass count is needed. Returns the int32 rank, at most
+    ``cap``."""
     n = queries.shape[0]
-    order, t_sorted, k4_in, n_pass = _rank_tiles(keys, queries)
-    local = torch.full((n,), -1, dtype=torch.int32, device=queries.device)
-    for p in range(n_pass):
-        _tiles.tile_search(keys, *k4_in, pass_idx=p, out=local)
+    order, t_sorted, k4_in = _rank_tiles(keys, queries)
+    local = _tiles.tile_search(keys, *k4_in, pass_idx=0,
+                               pass_hi=max(1, -(-n // Q_BLK)))
     r_sorted = torch.clamp(t_sorted * TILE + local + 1, max=keys.shape[0])
     out = torch.empty(n, dtype=torch.int32, device=queries.device)
     out[order] = r_sorted.to(torch.int32)

@@ -10,13 +10,16 @@ The Pallas kernel takes a dense ``(n_tiles, Q_BLK)`` buffer of routed
 queries. Here the queries arrive sorted by tile, with one segment per tile
 that holds a query: ``seg_tile[g]`` is the tile of segment ``g`` and
 ``seg_start[g]..seg_start[g + 1]`` its queries (unused trailing segments
-start and end at ``n``). Pass ``pass_idx`` handles a segment's queries
-``pass_idx * Q_BLK`` to ``pass_idx * Q_BLK + Q_BLK - 1``: one pass is one
-Pallas launch's worth of queries per tile. Only the entries of that pass
-are written to ``out``.
+start and end at ``n``). Pass ``p`` handles a segment's queries
+``p * Q_BLK`` to ``p * Q_BLK + Q_BLK - 1``: one pass is one Pallas launch's
+worth of queries per tile. A call runs the passes ``pass_idx`` to
+``pass_hi - 1`` (by default the one pass ``pass_idx``) and writes only
+their entries to ``out``; the result equals those passes run in order.
 
 The CUDA source is ``csrc/tile_search.cu``; its header says what bounds it
-on the H100 and what the one-CTA-per-segment design does about it.
+on the H100 and what its design (CTAs that each take an equal share of
+the queries, two-stage TMA bulk copies of the tiles, a warp per query) does
+about it.
 ``tile_search`` below launches it for CUDA tensors and runs
 ``tile_search_plain`` for CPU tensors; ``tile_search.launches`` counts the
 CUDA launches.
@@ -33,14 +36,25 @@ _KEY_MAX = torch.iinfo(torch.int64).max
 _CHUNK = 1024  # plain version: queries per compare block (2M compares)
 
 
+def _pass_range(pass_idx: int, pass_hi):
+    """The passes ``[pass_idx, pass_hi)`` of a call (``pass_hi`` None: the
+    one pass ``pass_idx``); raises on an empty or negative range."""
+    hi = pass_idx + 1 if pass_hi is None else int(pass_hi)
+    if not 0 <= pass_idx < hi:
+        raise ValueError(f"need 0 <= pass_idx < pass_hi, got {pass_idx}, {hi}")
+    return pass_idx, hi
+
+
 def tile_search_plain(slot_keys, queries, seg_tile, seg_start, *,
-                      pass_idx: int = 0, out=None):
+                      pass_idx: int = 0, pass_hi=None, out=None):
     """Plain torch version of K4 (same inputs and outputs as the kernel):
     ``slot_keys`` int64 [cap]; ``queries`` int64 [n] sorted by tile;
     ``seg_tile`` int64 [G]; ``seg_start`` int64 [G + 1]. Returns ``out``
-    (int32 [n], -1 where not written; allocated when None) with this
-    pass's entries written. The compare-count runs in blocks of
-    ``_CHUNK`` queries, so no more than 2M comparisons exist at once."""
+    (int32 [n], -1 where not written; allocated when None) with the
+    entries of the passes ``pass_idx`` .. ``pass_hi - 1`` written. The
+    compare-count runs in blocks of ``_CHUNK`` queries, so no more than 2M
+    comparisons exist at once."""
+    p_lo, p_hi = _pass_range(pass_idx, pass_hi)
     n = queries.shape[0]
     cap = slot_keys.shape[0]
     dev = queries.device
@@ -51,8 +65,8 @@ def tile_search_plain(slot_keys, queries, seg_tile, seg_start, *,
     i = torch.arange(n, device=dev)
     g = torch.searchsorted(seg_start, i, right=True) - 1
     within = i - seg_start[g]
-    sel = torch.nonzero((within >= pass_idx * Q_BLK)
-                        & (within < (pass_idx + 1) * Q_BLK)).reshape(-1)
+    sel = torch.nonzero((within >= p_lo * Q_BLK)
+                        & (within < p_hi * Q_BLK)).reshape(-1)
     k = torch.arange(TILE, device=dev)
     for c in torch.split(sel, _CHUNK):
         pos = seg_tile[g[c]][:, None] * TILE + k[None, :]
@@ -64,12 +78,14 @@ def tile_search_plain(slot_keys, queries, seg_tile, seg_start, *,
 
 
 def tile_search(slot_keys, queries, seg_tile, seg_start, *,
-                pass_idx: int = 0, out=None):
+                pass_idx: int = 0, pass_hi=None, out=None):
     """K4: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Same contract as ``tile_search_plain``."""
+    tensors. Same contract as ``tile_search_plain``; one launch runs every
+    pass of the range."""
+    p_lo, p_hi = _pass_range(pass_idx, pass_hi)
     if queries.device.type == "cpu":
         return tile_search_plain(slot_keys, queries, seg_tile, seg_start,
-                                 pass_idx=pass_idx, out=out)
+                                 pass_idx=p_lo, pass_hi=p_hi, out=out)
     if queries.device.type != "cuda":
         raise ValueError(f"no tile search kernel for {queries.device}")
     for name, x in (("slot_keys", slot_keys), ("queries", queries),
@@ -93,8 +109,8 @@ def tile_search(slot_keys, queries, seg_tile, seg_start, *,
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = build.library().tile_search_launch(
         slot_keys.data_ptr(), queries.data_ptr(), seg_tile.data_ptr(),
-        seg_start.data_ptr(), out.data_ptr(), n_seg, slot_keys.shape[0],
-        pass_idx, stream,
+        seg_start.data_ptr(), out.data_ptr(), n_seg, n, slot_keys.shape[0],
+        p_lo, p_hi, stream,
     )
     build.check(err, "tile_search")
     tile_search.launches += 1

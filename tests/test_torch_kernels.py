@@ -28,7 +28,7 @@ from repro_torch.core.nullifier import nullify
 from repro_torch.core.radix_spline import build_radix_spline
 from repro_torch.core.types import KEY_MAX
 from repro_torch.kernels import ops
-from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
+from repro_torch.kernels.bmat_rank import MAX_FANOUT, bmat_rank, bmat_rank_plain
 from repro_torch.kernels.gmm_estep import MAX_COMPONENTS, gmm_estep
 from repro_torch.kernels.ref import gmm_estep_plain
 from repro_torch.kernels.spline_lookup import fused_locate, fused_locate_plain
@@ -292,6 +292,18 @@ def test_bmat_rank_plain_matches_pallas(n_shards, cap, fanout):
         np.testing.assert_array_equal(no_sid, ref)
 
 
+@pytest.mark.parametrize("fanout", [0, MAX_FANOUT + 1, 128])
+def test_bmat_rank_refuses_a_fanout_its_node_round_cannot_read(fanout):
+    """K2's node round reads at most ``MAX_FANOUT`` keys: the wrapper
+    raises above it (and below 1), on the CPU as on the card, rather than
+    run the plain version."""
+    keys, fences = _bmat_arrays(1, 256, 16, seed=1)
+    t = torch.as_tensor
+    with pytest.raises(ValueError):
+        bmat_rank(t(keys.reshape(-1)), t(fences.reshape(-1)),
+                  t(keys[0, :10]), cap=256, nf=fences.shape[1], fanout=fanout)
+
+
 def test_bound_counts_each_read_once():
     """``chip_smoke.py`` bounds a kernel by the distinct elements its plain
     version reads: a batch of copies of one query reads what one query
@@ -475,6 +487,63 @@ def test_bmat_rank_cuda_matches_plain(cuda):
     got = bmat_rank(k, fe, q, sid, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, bmat_rank_plain(k, fe, q, sid, **kw))
+
+
+def _k2_case(n_shards, nf, fanout, seed):
+    """Stacked BMATs with ``nf`` fences each (nf = 1: one node and the
+    fence array [KEY_MAX]; odd nf: a partial last node): sorted keys with
+    duplicates and KEY_MAX padding, and a pool of queries (random, 0,
+    below the smallest key, the fences, the keys, KEY_MAX - 1, KEY_MAX)
+    in random order, with a shard id each."""
+    r = np.random.default_rng(seed)
+    cap = fanout if nf == 1 else (nf - 1) * fanout - (nf % 2) * (fanout // 2)
+    keys = np.full((n_shards, cap), KEY_MAX, np.int64)
+    for s in range(n_shards):
+        m = max(1, cap - cap // 5 - s)
+        keys[s, :m] = np.sort(r.integers(1000, 1000 + 3 * m, m))  # dups
+    fences = np.concatenate(
+        [keys[:, ::fanout], np.full((n_shards, 1), KEY_MAX, np.int64)], axis=1)
+    if nf == 1:
+        fences = fences[:, 1:]
+    assert fences.shape[1] == nf
+    live = keys[keys != KEY_MAX]
+    pool = np.concatenate([
+        r.integers(0, 1000 + 4 * cap, 4000), [0, 999, KEY_MAX, KEY_MAX - 1],
+        fences.reshape(-1), r.choice(live, 200), live.min(keepdims=True) - 1,
+    ]).astype(np.int64)
+    pool = r.permutation(pool)
+    sid = r.integers(0, n_shards, len(pool)).astype(np.int64)
+    return keys, fences, pool, sid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fanout", [8, 16, 64])
+@pytest.mark.parametrize("nf", [1, 17, 32, 33, 2500])
+def test_bmat_rank_cuda_equals_plain_across_shapes(cuda, fanout, nf):
+    """K2's 32-ary fence search and node ballot against the plain bisect,
+    exactly: fence counts of 1, below 32, 32, 33 and 2500 (not a power of
+    32), 1 and 4 stacked shards with and without shard ids, batches of 1,
+    31 and 4097 queries."""
+    for n_shards in (1, 4):
+        keys, fences, pool, sid = _k2_case(n_shards, nf, fanout,
+                                           seed=nf * fanout + n_shards)
+        cap = keys.shape[1]
+        k = torch.as_tensor(keys.reshape(-1), device=cuda)
+        fe = torch.as_tensor(fences.reshape(-1), device=cuda)
+        kw = dict(cap=cap, nf=nf, fanout=fanout)
+        for n in (1, 31, 4097):
+            q = torch.as_tensor(np.resize(pool, n), device=cuda)
+            for s in (None, torch.as_tensor(np.resize(sid, n), device=cuda)):
+                before = bmat_rank.launches
+                got = bmat_rank(k, fe, q, s, **kw)
+                torch.cuda.synchronize()
+                assert bmat_rank.launches == before + 1
+                want = bmat_rank_plain(k, fe, q, s, **kw)
+                assert torch.equal(got, want), (n_shards, n, s is None)
+                ss = np.zeros(n, np.int64) if s is None else s.cpu().numpy()
+                gold = [np.searchsorted(keys[a], b, "left")
+                        for a, b in zip(ss, q.cpu().numpy())]
+                np.testing.assert_array_equal(got.cpu().numpy(), gold)
 
 
 @pytest.mark.gpu

@@ -232,6 +232,74 @@ def test_tile_search_passes_and_padding():
     np.testing.assert_array_equal(both[-7:].numpy(), want)
 
 
+def _k4_case(seed, cap, sizes, sorted_tiles=True, empty=3):
+    """Slot keys and K4 inputs: one segment per entry of ``sizes`` (its
+    query count), each on its own tile, the last on the ragged last tile,
+    then ``empty`` unused segments that start and end at n. Queries mix
+    random keys, the tile's own keys, 0 and int64 max."""
+    r = np.random.default_rng(seed)
+    slots = r.integers(0, 1 << 48, cap).astype(np.int64)
+    if sorted_tiles:
+        slots.sort()
+    n_tiles = -(-cap // TILE)
+    tiles = np.concatenate([
+        np.sort(r.choice(n_tiles - 1, len(sizes) - 1, replace=False)),
+        [n_tiles - 1]]).astype(np.int64)
+    qs = []
+    for t, m in zip(tiles, sizes):
+        own = slots[t * TILE:(t + 1) * TILE]
+        q = np.concatenate([r.integers(0, 1 << 48, m), r.choice(own, m),
+                            [0, I64_MAX]])
+        qs.append(r.permutation(q)[:m])
+    q = np.concatenate(qs).astype(np.int64)
+    seg_tile = np.concatenate([tiles, np.zeros(empty, np.int64)])
+    seg_start = np.concatenate([[0], np.cumsum(sizes),
+                                np.full(empty, len(q))]).astype(np.int64)
+    return slots, q, seg_tile, seg_start
+
+
+def _k4_oracle(slots, q, seg_tile, seg_start, pass_lo, pass_hi):
+    """numpy K4: each entry of the passes, the count of its tile's keys
+    (the last tile padded with int64 max) <= q, minus one; -1 elsewhere."""
+    out = np.full(len(q), -1, np.int32)
+    padded = np.concatenate([slots, np.full(-len(slots) % TILE, I64_MAX)])
+    for t, a, b in zip(seg_tile, seg_start[:-1], seg_start[1:]):
+        lo, hi = a + pass_lo * Q_BLK, min(a + pass_hi * Q_BLK, b)
+        tile = padded[t * TILE:(t + 1) * TILE]
+        for i in range(lo, hi):
+            out[i] = int((tile <= q[i]).sum()) - 1
+    return out
+
+
+K4_SIZES = [1, Q_BLK, Q_BLK + 1, 1100]  # 1100: three passes
+
+
+@pytest.mark.parametrize("pass_lo,pass_hi", [(0, 1), (1, 2), (2, 3), (0, 2),
+                                             (1, 3), (0, 3), (0, 9)])
+def test_tile_search_plain_pass_range(pass_lo, pass_hi):
+    """One call over the passes ``[pass_lo, pass_hi)`` equals the
+    single-pass calls applied in order, and the numpy oracle; segments of
+    1, 512, 513 and 1100 queries, the last on a ragged last tile."""
+    cap = 5 * TILE + 333
+    case = _k4_case(pass_lo * 10 + pass_hi, cap, K4_SIZES)
+    args = [torch.tensor(a) for a in case]
+    got = tile_search_plain(*args, pass_idx=pass_lo, pass_hi=pass_hi)
+    in_turn = None
+    for p in range(pass_lo, pass_hi):
+        in_turn = tile_search_plain(*args, pass_idx=p, out=in_turn)
+    assert torch.equal(got, in_turn)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _k4_oracle(*case, pass_lo, pass_hi))
+
+
+@pytest.mark.parametrize("pass_lo,pass_hi", [(1, 1), (2, 1), (-1, 0)])
+def test_tile_search_rejects_an_empty_pass_range(pass_lo, pass_hi):
+    args = [torch.tensor(a) for a in _k4_case(0, 3 * TILE, [1, 2])]
+    for fn in (tile_search, tile_search_plain):
+        with pytest.raises(ValueError):
+            fn(*args, pass_idx=pass_lo, pass_hi=pass_hi)
+
+
 def _route_case(seed, cap, n):
     r = np.random.default_rng(seed)
     slots = np.sort(r.integers(0, 1 << 48, cap)).astype(np.int64)
@@ -320,7 +388,8 @@ def test_bmat_rank_k2_route_matches_jax(cap, fanout):
 def test_bmat_rank_tiled_route_matches_jax(monkeypatch):
     """Above ``TILED_RANK_ABOVE`` keys the rank takes the tiled K4
     composition, as the reference does, and stays exact under a
-    duplicated batch that needs more than one pass."""
+    duplicated batch that needs more than one pass; one K4 call runs every
+    pass (``ceil(n / Q_BLK)`` bound every segment)."""
     r = np.random.default_rng(11)
     cap = 2 * ops.TILED_RANK_ABOVE
     n = cap - 777
@@ -335,13 +404,13 @@ def test_bmat_rank_tiled_route_matches_jax(monkeypatch):
     plain = tmod.tile_search_plain
 
     def spy(*a, **k):
-        passes.append(k["pass_idx"])
+        passes.append((k["pass_idx"], k["pass_hi"]))
         return plain(*a, **k)
 
     monkeypatch.setattr(tmod, "tile_search_plain", spy)
     got = ops.bmat_rank(torch.tensor(arr), torch.tensor(fences),
                         torch.tensor(q), 16)
-    assert passes == [0, 1, 2]
+    assert passes == [(0, -(-len(q) // Q_BLK))]
     want = np.asarray(jops.bmat_rank(jnp.asarray(arr), jnp.asarray(fences),
                                      jnp.asarray(q), 16))
     assert got.dtype == torch.int32
@@ -412,3 +481,76 @@ def test_tile_search_cuda_matches_plain(cuda):
         want = tile_search_plain(ts, *k4_in, pass_idx=p)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def _on(cuda, case, offset=0):
+    """A K4 case on the card; ``offset`` 1 leaves the slot array only
+    8-byte aligned (a view one key into its storage)."""
+    slots = np.concatenate([np.zeros(offset, np.int64), case[0]])
+    return [torch.as_tensor(slots, device=cuda)[offset:]] + [
+        torch.as_tensor(a, device=cuda) for a in case[1:]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_tiles", [True, False])
+@pytest.mark.parametrize("cap", [5 * TILE + 333, 5 * TILE + 334])
+def test_tile_search_cuda_pass_range(cuda, sorted_tiles, cap):
+    """K4 over a pass range in one launch equals its plain version, the
+    same kernel's passes in turn and the numpy oracle: sorted and unsorted
+    tiles, a ragged last tile of an odd and an even key count, segments of
+    1, 512, 513 and 1100 queries, a 16-byte and an 8-byte aligned slot
+    array."""
+    case = _k4_case(cap, cap, K4_SIZES, sorted_tiles)
+    for offset in (0, 1):
+        args = _on(cuda, case, offset)
+        assert args[0].data_ptr() % 16 == 8 * offset
+        for lo, hi in ((0, 1), (1, 3), (0, 3), (0, 9)):
+            before = tile_search.launches
+            got = tile_search(*args, pass_idx=lo, pass_hi=hi)
+            assert tile_search.launches == before + 1
+            in_turn = None
+            for p in range(lo, hi):
+                in_turn = tile_search(*args, pass_idx=p, out=in_turn)
+            want = tile_search_plain(*args, pass_idx=lo, pass_hi=hi)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (offset, lo, hi)
+            assert torch.equal(got, in_turn), (offset, lo, hi)
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          _k4_oracle(*case, lo, hi))
+
+
+@pytest.mark.gpu
+def test_tile_search_cuda_more_segments_than_ctas(cuda):
+    """3000 segments, more than the grid's CTAs (about six per SM), each CTA
+    walking several; one segment of 600 queries takes two passes."""
+    r = np.random.default_rng(8)
+    sizes = list(r.integers(1, 4, 2999)) + [600]
+    case = _k4_case(8, 3000 * TILE - 5, sizes, sorted_tiles=False)
+    args = _on(cuda, case)
+    for lo, hi in ((0, 1), (1, 2), (0, 2)):
+        got = tile_search(*args, pass_idx=lo, pass_hi=hi)
+        want = tile_search_plain(*args, pass_idx=lo, pass_hi=hi)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (lo, hi)
+        assert int((got >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_bmat_rank_tiled_launches_k4_once(cuda):
+    """The tiled rank on the card: one K4 launch for a batch that needs
+    three passes, exact against searchsorted and the CPU."""
+    r = np.random.default_rng(11)
+    cap = 2 * ops.TILED_RANK_ABOVE
+    arr, fences = _rank_buffer(r, cap, cap - 777, 1 << 52, 16)
+    q = np.concatenate([r.integers(0, 1 << 52, 1024),
+                        np.full(2 * Q_BLK + 3, arr[cap - 778]),
+                        [0, 1, I64_MAX]]).astype(np.int64)
+    ta, tf, tq = (torch.as_tensor(a, device=cuda) for a in (arr, fences, q))
+    ops.reset_launch_counts()
+    got = ops.bmat_rank(ta, tf, tq, 16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tile_search"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.searchsorted(arr, q, "left"))
+    cpu = ops.bmat_rank(ta.cpu(), tf.cpu(), tq.cpu(), 16)
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
