@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K2 (BMAT rank) and K4 (tile search) kernels of two source
-trees in turns on one GPU.
+"""Time the port's K1 (fused locate), K2 (BMAT rank), K3 (GMM E-step) and
+K4 (tile search) kernels of two source trees in turns on one GPU.
 
     python3 kernel_ab.py OTHER_TREE [--out PATH]
 
@@ -8,13 +8,22 @@ trees in turns on one GPU.
 example a ``git archive`` of an earlier commit unpacked under ``build/``.
 This tree makes the inputs once, as ``chip_smoke.py`` makes them: the 4M-key
 wikits index after the single-index main path (four mixes of 200 waves and
-the delete phase), K2's main-path batch (one mixed wave's 2048 reads and
-2048 insert keys) on its BMAT, and K4's route batch (a 4096-query mix routed
-by ``ops.spline_lookup`` over the index's 10.5M-slot array) and a rank batch
-with duplicated runs. Then each timing runs in a fresh process that imports
-``repro_torch`` from one tree (building that tree's kernels into its own
-``build/``), in the order OTHER, THIS, THIS, OTHER, and prints one JSON line:
+the delete phase), K1's and K2's main-path batch (one mixed wave's 2048
+reads and 2048 insert keys) on its model, slot array (at the main path's
+offset from a 128-byte line) and BMAT, K3's inputs as the forecaster gives
+them for one write-heavy wave's 2048 insert keys (K = 4, after it has
+observed 20 waves) and a sweep of K 1..8 at N 1..8193, K4's route batch (a
+4096-query mix routed by ``ops.spline_lookup`` over the index's 10.5M-slot
+array) and a rank batch with duplicated runs. Then each timing runs in a
+fresh process that imports ``repro_torch`` from one tree (building that
+tree's kernels into its own ``build/``), in the order OTHER, THIS, THIS,
+OTHER, and prints one JSON line:
 
+  * ``k1_ms`` / ``k1_cold_ms``: K1's device time per launch, warm and with
+    the L2 flushed by a read before each launch, ``k1_call_ms`` through
+    the wrapper between CUDA events;
+  * ``k3_ms``: K3's device time per launch on the forecaster's inputs,
+    ``k3_call_ms`` through the wrapper;
   * ``k2_ms``: K2's device time per launch (profiler device events, warm:
     the main path ranks the same BMAT every wave), ``k2_call_ms`` through
     the wrapper between CUDA events, ``k2_library_ms`` for
@@ -30,8 +39,9 @@ with duplicated runs. Then each timing runs in a fresh process that imports
   * ``floor_ms`` / ``floor_cold_ms``: one trivial launch (``add_`` on 4096
     int64), warm and after the read flush.
 
-Every run's outputs (K2's ranks, K4's route entries, the tiled ranks) must
-equal the first run's. The summary goes to stdout and to ``--out`` (by
+Every run's outputs (K1's ``(j, start)``, K3's responsibilities on the
+forecaster's inputs and on the sweep, K2's ranks, K4's route entries, the
+tiled ranks) must equal the first run's, bit for bit. The summary goes to stdout and to ``--out`` (by
 default ``build/kernel_ab/summary.json``).
 """
 from __future__ import annotations
@@ -55,6 +65,7 @@ def make_inputs(path: Path) -> None:
     from repro_torch.core import UpLIF
     from repro_torch.data import WorkloadRunner, make_dataset
     from repro_torch.kernels import ops
+    from repro_torch.tuning.forecast import UpdateForecaster
 
     keys = make_dataset("wikits", cs.N_KEYS)
     runner = WorkloadRunner(keys, init_frac=0.5, batch=cs.BATCH, seed=0)
@@ -62,7 +73,16 @@ def make_inputs(path: Path) -> None:
     _, _, live = cs.run_main_path(torch, index, runner, cs.WAVES,
                                   cs.DELETE_WAVES)
     batch = np.concatenate(runner.next_batch(0.5))
-    k2 = cs.kernel_inputs(torch, index, batch)[1]
+    k1, k2 = cs.kernel_inputs(torch, index, batch)
+    fc = UpdateForecaster(float(keys[0]), float(keys[-1]))
+    for _ in range(20):
+        fc.observe(runner.next_batch(0.5)[1])
+    k3 = cs.k3_args(torch, fc, runner.next_batch(0.5)[1])
+    rng = np.random.default_rng(3)
+    sweep = [[torch.as_tensor(a.astype(np.float32)) for a in (
+        rng.uniform(0, 1, n), rng.dirichlet(np.ones(k)),
+        np.sort(rng.uniform(0, 1, k)), rng.uniform(0.01, 0.3, k))]
+        for n in (1, 31, 2048, 8193) for k in range(1, 9)]
     m, st = index.rs_model, index.rs_static
     sk = index.slots.keys
     q, qq = cs.api_batches(torch, index, live, 21)
@@ -71,12 +91,17 @@ def make_inputs(path: Path) -> None:
     route = ops._route_tiles(sk, q, p)[3]
     cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
     torch.save(dict(
+        k1_args=cpu(k1["args"]), k1_kw=k1["kw"],
+        k1_lead=(k1["args"][4].data_ptr() % 128) // 8,
+        k3_args=cpu(k3), k3_sweep=sweep,
         k2_args=cpu(k2["args"]), k2_kw=k2["kw"], slots=sk.cpu(),
         route=cpu(route), route_q=q.cpu(), rank_q=qq.cpu(),
         fences=cs._fences(torch, sk).cpu(),
     ), path)
-    print(f"inputs: BMAT cap {k2['kw']['cap']}, nf {k2['kw']['nf']}, fanout "
-          f"{k2['kw']['fanout']}; {sk.shape[0]} slots, "
+    print(f"inputs: K1 {json.dumps(cs.k1_shape(k1))}; K3 N "
+          f"{k3[0].shape[0]}, K {k3[1].shape[0]}; BMAT cap {k2['kw']['cap']}, "
+          f"nf {k2['kw']['nf']}, fanout {k2['kw']['fanout']}; "
+          f"{sk.shape[0]} slots, "
           f"{route[1].shape[0]} segments, rank batch {qq.shape[0]}",
           flush=True)
 
@@ -90,18 +115,32 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     import repro_torch
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.bmat_rank import bmat_rank
+    from repro_torch.kernels.gmm_estep import gmm_estep
+    from repro_torch.kernels.spline_lookup import fused_locate
     from repro_torch.kernels.tile_search import tile_search
 
     cs.require(Path(repro_torch.__file__).resolve().is_relative_to(
         tree.resolve()), f"imported {repro_torch.__file__}, not {tree}")
     build.library()
-    d = {k: (v.cuda() if torch.is_tensor(v) else
-             [t.cuda() for t in v] if isinstance(v, list) else v)
-         for k, v in torch.load(inputs).items()}
+
+    def cuda(v):
+        if torch.is_tensor(v):
+            return v.cuda()
+        return [cuda(t) for t in v] if isinstance(v, list) else v
+
+    d = {k: cuda(v) for k, v in torch.load(inputs).items()}
+    # K1's slot array at the main path's offset from a 128-byte line
+    k1_args, k1_kw, lead = list(d["k1_args"]), d["k1_kw"], d["k1_lead"]
+    buf = torch.empty(k1_args[4].shape[0] + lead, dtype=torch.int64,
+                      device="cuda")
+    buf[lead:] = k1_args[4]
+    k1_args[4] = buf[lead:]
     k2_args, kw, sk = d["k2_args"], d["k2_kw"], d["slots"]
     bkeys, q2 = k2_args[0], k2_args[2]
     out = torch.empty(d["route_q"].shape[0], dtype=torch.int32, device="cuda")
     x = torch.zeros(cs.BATCH, dtype=torch.int64, device="cuda")
+    k1 = lambda: fused_locate(*k1_args, **k1_kw)  # noqa: E731
+    k3 = lambda: gmm_estep(*d["k3_args"])  # noqa: E731
     k2 = lambda: bmat_rank(*k2_args, **kw)  # noqa: E731
     k4 = lambda: tile_search(sk, *d["route"], pass_idx=0, out=out)  # noqa: E731
     lib4 = lambda: torch.searchsorted(sk, d["route_q"], right=True) - 1  # noqa: E731
@@ -113,9 +152,18 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     tiled_k4 = ops.launch_counts()["tile_search"]
     out.fill_(-7)
     k4()
-    torch.save(dict(k2=k2().cpu(), k4=out.cpu(), tiled=ranks.cpu()), outputs)
+    j, start = k1()
+    sweep = torch.cat([gmm_estep(*a).reshape(-1) for a in d["k3_sweep"]])
+    torch.save(dict(k1_j=j.cpu(), k1_start=start.cpu(), k3=k3().cpu(),
+                    k3_sweep=sweep.cpu(), k2=k2().cpu(), k4=out.cpu(),
+                    tiled=ranks.cpu()), outputs)
     res = {
         "tree": str(tree), "card": cs.card_line(),
+        "k1_ms": cs.device_ms(torch, k1, 500),
+        "k1_cold_ms": cs.cold_ms(torch, k1, 200),
+        "k1_call_ms": cs.call_ms(torch, k1, 500),
+        "k3_ms": cs.device_ms(torch, k3, 500),
+        "k3_call_ms": cs.call_ms(torch, k3, 500),
         "k2_ms": cs.device_ms(torch, k2, 500),
         "k2_call_ms": cs.call_ms(torch, k2, 500),
         "k2_library_ms": cs.device_ms(

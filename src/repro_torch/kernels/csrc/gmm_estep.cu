@@ -5,18 +5,32 @@
 //
 // Replaces the TPU kernel gmm_estep_pallas (src/repro/kernels/gmm_estep.py),
 // which tiles the samples in 2048-row blocks with the K parameters resident
-// in VMEM. Here one thread owns one sample: the K <= 8 parameters (and their
-// logs) sit in shared memory, computed once per block, and the ragged edge
-// is masked, so the caller pads nothing.
+// in VMEM. Here the ragged edge is masked, so the caller pads nothing.
 //
 // Arithmetic: full-precision logf/expf and IEEE division, and each multiply,
 // add and subtract rounded on its own (__fmul_rn/__fsub_rn/__fadd_rn) in the
 // order of the plain torch version (kernels/ref.py), so nvcc cannot contract
-// them into fused multiply-adds. No --use_fast_math.
+// them into fused multiply-adds. No --use_fast_math. The max is exact in any
+// order, and the sum adds the K exponentials in the order c = 0 .. K - 1,
+// so every rounding is the one-thread-per-sample design's, and the output
+// is bit-identical to it.
 //
-// What bounds it on the H100: 4 bytes in and 4K bytes out per sample, a few
-// dozen float32 operations; at the forecaster's N <= 8192 the launch itself
-// dominates. A simple, correct kernel first.
+// What bounds it on the H100: 4 bytes in and 4K bytes out per sample and a
+// few dozen float32 operations, so at the forecaster's N <= 8192 neither
+// bytes nor operations but the launch, and inside it each thread's serial
+// work. The first design gave a thread one sample: after a __syncthreads
+// on each CTA's logf of the parameters, it ran K IEEE divisions, K expf and
+// K more divisions one after another, on 8 CTAs for 2048 samples. This
+// design gives a sample a group of P = next_pow2(K) lanes:
+//   * lane c of the group owns component c: it loads w[c], mu[c], sd[c]
+//     and takes their logf itself (no shared memory, no barrier), then one
+//     division, one expf and one division of its own;
+//   * the max is a __shfl_xor_sync butterfly over the group; the sum
+//     gathers the K exponentials by __shfl_sync and adds them in order;
+//   * lanes c >= K (K not a power of two) hold -inf and write nothing;
+//   * each lane writes out[i * K + c], so a warp's stores are one
+//     contiguous run; 128-thread CTAs, so 2048 samples with K = 4 run on 64
+//     CTAs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -25,54 +39,53 @@
 
 namespace {
 
-__global__ void __launch_bounds__(256) gmm_estep_kernel(
+constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+template <int P>
+__global__ void __launch_bounds__(kThreads) gmm_estep_kernel(
     const float* __restrict__ x,    // [n]
     const float* __restrict__ w,    // [k]
     const float* __restrict__ mu,   // [k]
     const float* __restrict__ sd,   // [k]
     float* __restrict__ out,        // [n, k], row-major
     int n, int k) {
-    __shared__ float s_logw[GMM_MAX_K];
-    __shared__ float s_mu[GMM_MAX_K];
-    __shared__ float s_sd[GMM_MAX_K];
-    __shared__ float s_logsd[GMM_MAX_K];
-    if (threadIdx.x < k) {
-        const int c = threadIdx.x;
-        s_logw[c] = logf(w[c]);
-        s_mu[c] = mu[c];
-        s_sd[c] = sd[c];
-        s_logsd[c] = logf(sd[c]);
-    }
-    __syncthreads();
+    const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+    if ((t & ~31LL) / P >= n) return;  // the whole warp is past the end
+    const int c = threadIdx.x & (P - 1);  // the component this lane owns
+    const long long i = t / P;
+    const bool own = i < n && c < k;
 
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const float xi = x[i];
-    float lp[GMM_MAX_K];
-    float m = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < GMM_MAX_K; ++c) {
-        if (c < k) {
-            const float z = __fdiv_rn(__fsub_rn(xi, s_mu[c]), s_sd[c]);
-            const float hz = __fmul_rn(0.5f, z);
-            const float t = __fsub_rn(s_logw[c], __fmul_rn(hz, z));
-            lp[c] = __fsub_rn(t, s_logsd[c]);
-            m = fmaxf(m, lp[c]);
-        }
+    float lp = -INFINITY;
+    if (own) {
+        const float s = __ldg(sd + c);
+        const float z = __fdiv_rn(__fsub_rn(__ldg(x + i), __ldg(mu + c)), s);
+        const float hz = __fmul_rn(0.5f, z);
+        const float v = __fsub_rn(logf(__ldg(w + c)), __fmul_rn(hz, z));
+        lp = __fsub_rn(v, logf(s));
     }
+    // fmaxf drops a NaN, as the serial max from -inf did
+    float m = fmaxf(-INFINITY, lp);
+#pragma unroll
+    for (int o = 1; o < P; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(kFull, m, o, P));
+    const float e = own ? expf(__fsub_rn(lp, m)) : 0.0f;
     float sum = 0.0f;
 #pragma unroll
-    for (int c = 0; c < GMM_MAX_K; ++c) {
-        if (c < k) {
-            lp[c] = expf(__fsub_rn(lp[c], m));
-            sum = __fadd_rn(sum, lp[c]);
-        }
+    for (int cc = 0; cc < P; ++cc) {
+        const float ec = __shfl_sync(kFull, e, cc, P);
+        if (cc < k) sum = __fadd_rn(sum, ec);
     }
-    float* row = out + (long long)i * k;
-#pragma unroll
-    for (int c = 0; c < GMM_MAX_K; ++c) {
-        if (c < k) row[c] = __fdiv_rn(lp[c], sum);
-    }
+    if (own) out[i * k + c] = __fdiv_rn(e, sum);
+}
+
+template <int P>
+void launch(const float* x, const float* w, const float* mu, const float* sd,
+            float* out, int n, int k, cudaStream_t stream) {
+    const long long per_block = kThreads / P;
+    const int blocks = (int)((n + per_block - 1) / per_block);
+    gmm_estep_kernel<P><<<blocks, kThreads, 0, stream>>>(x, w, mu, sd, out,
+                                                         n, k);
 }
 
 }  // namespace
@@ -82,10 +95,15 @@ extern "C" int gmm_estep_launch(
     int n, int k, void* stream) {
     if (n <= 0) return 0;
     if (k < 1 || k > GMM_MAX_K) return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    gmm_estep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)w, (const float*)mu, (const float*)sd,
-        (float*)out, n, k);
+    const float* xs = (const float*)x;
+    const float* ws = (const float*)w;
+    const float* ms = (const float*)mu;
+    const float* ss = (const float*)sd;
+    float* o = (float*)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (k == 1) launch<1>(xs, ws, ms, ss, o, n, k, st);
+    else if (k == 2) launch<2>(xs, ws, ms, ss, o, n, k, st);
+    else if (k <= 4) launch<4>(xs, ws, ms, ss, o, n, k, st);
+    else launch<8>(xs, ws, ms, ss, o, n, k, st);
     return (int)cudaGetLastError();
 }

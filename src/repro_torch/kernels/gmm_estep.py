@@ -7,10 +7,14 @@ that the streaming D_update forecaster (``tuning/forecast.py``) computes on
 every wave with inserts.
 
 The CUDA source is ``csrc/gmm_estep.cu``; its header says what bounds it on
-the H100 (the launch, at the forecaster's sizes) and how it rounds.
-``gmm_estep`` below launches it for CUDA tensors and runs
-``ref.gmm_estep_plain`` for CPU tensors; ``gmm_estep.launches`` counts the
-CUDA launches.
+the H100 (the launch, at the forecaster's sizes, and each thread's serial
+work inside it) and how it rounds. A sample gets a group of
+``next_pow2(K)`` lanes, one component each: every lane takes the logs of
+its own parameters, the max is a butterfly over the group, and the sum
+adds the K exponentials in component order, so the kernel rounds exactly
+as a one-thread-per-sample loop does. ``gmm_estep`` below launches it for
+CUDA tensors and runs ``ref.gmm_estep_plain`` for CPU tensors;
+``gmm_estep.launches`` counts the CUDA launches.
 """
 from __future__ import annotations
 

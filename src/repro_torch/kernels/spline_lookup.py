@@ -9,10 +9,17 @@ pair (``j`` = last slot with key <= q inside the span, ``start - 1`` when
 there is none).
 
 The CUDA source is ``csrc/fused_locate.cu``; its header says what bounds it
-on the H100 (a chain of dependent random 8-byte reads, i.e. latency) and
-what the one-thread-per-query design does about it. ``fused_locate`` below
-launches it for CUDA tensors and runs ``fused_locate_plain`` for CPU
-tensors; ``fused_locate.launches`` counts the CUDA launches.
+on the H100 (a chain of dependent reads, i.e. latency, and the launch) and
+what its design does about it: a warp per query, the knot bisect as one
+32-lane round that counts the knots <= q in the bucket's range, and the
+span bisect as two rounds that count the span's slot keys <= q (one probe
+per 32-key chunk, then the one chunk where the keys pass q). Counting gives
+the bisects' answer because knots and slot keys are sorted within a shard
+(the slot keys by the fill-forward invariant); a knot range too wide for
+``rs_iters`` steps to converge runs the reference's bisect in the kernel.
+``fused_locate`` below launches it for CUDA tensors and runs
+``fused_locate_plain``, which keeps the reference's bisects step by step,
+for CPU tensors; ``fused_locate.launches`` counts the CUDA launches.
 
 Arithmetic note: the TPU kernel's reference run (XLA) contracts the lerp
 ``p0 + t * (p1 - p0)`` into a fused multiply-add. The CUDA kernel writes
@@ -58,6 +65,30 @@ def span_length(window: int, cap: int) -> int:
     return min(3 * window, cap)
 
 
+def knot_segment_plain(table, spline_keys, shift, queries, sid=None, *,
+                       n_table: int, n_knots: int, rs_iters: int):
+    """K1's steps 1 and 2 as the plain version computes them: the radix
+    bucket and ``rs_iters`` steps of knot bisect. Returns the flat index
+    (over the shard axis) of each query's spline segment, int64."""
+    if sid is None:
+        tb = sb = 0
+        sh = shift[:1].to(torch.int64)
+    else:
+        sid = sid.to(torch.int64)
+        tb = sid * n_table
+        sb = sid * n_knots
+        sh = shift.to(torch.int64)[sid]
+    b = torch.clamp(queries >> sh, 0, n_table - 3)
+
+    lo = sb + torch.clamp(table[tb + b].to(torch.int64), min=1) - 1
+    hi = sb + torch.clamp(table[tb + b + 1].to(torch.int64), 0, n_knots - 2)
+    for _ in range(rs_iters):
+        mid = (lo + hi + 1) >> 1
+        go = key_leq(spline_keys[mid], queries)
+        lo, hi = torch.where(go, mid, lo), torch.where(go, hi, mid - 1)
+    return torch.clamp(lo - sb, 0, n_knots - 2) + sb
+
+
 def fused_locate_plain(
     table, spline_keys, spline_pos, shift, slot_keys, queries, sid=None,
     *, n_table: int, n_knots: int, cap: int, window: int, rs_iters: int,
@@ -73,24 +104,10 @@ def fused_locate_plain(
     ``(j, start)``."""
     L = span_length(window, cap)
     n_bisect = max(1, int(np.ceil(np.log2(L))))
-    if sid is None:
-        tb = sb = slb = 0
-        sh = shift[:1].to(torch.int64)
-    else:
-        sid = sid.to(torch.int64)
-        tb = sid * n_table
-        sb = sid * n_knots
-        slb = sid * cap
-        sh = shift.to(torch.int64)[sid]
-    b = torch.clamp(queries >> sh, 0, n_table - 3)
-
-    lo = sb + torch.clamp(table[tb + b].to(torch.int64), min=1) - 1
-    hi = sb + torch.clamp(table[tb + b + 1].to(torch.int64), 0, n_knots - 2)
-    for _ in range(rs_iters):
-        mid = (lo + hi + 1) >> 1
-        go = key_leq(spline_keys[mid], queries)
-        lo, hi = torch.where(go, mid, lo), torch.where(go, hi, mid - 1)
-    s = torch.clamp(lo - sb, 0, n_knots - 2) + sb
+    s = knot_segment_plain(table, spline_keys, shift, queries, sid,
+                           n_table=n_table, n_knots=n_knots,
+                           rs_iters=rs_iters)
+    slb = 0 if sid is None else sid.to(torch.int64) * cap
 
     k0 = spline_keys[s]
     k1 = spline_keys[s + 1]
@@ -145,7 +162,9 @@ def fused_locate(
     interp64: bool = False,
 ):
     """K1: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Same contract as ``fused_locate_plain``."""
+    tensors. Same contract as ``fused_locate_plain``, on what every index
+    holds: knots and slot keys non-decreasing within each shard (the
+    kernel counts keys <= q where the plain version bisects)."""
     kw = dict(n_table=n_table, n_knots=n_knots, cap=cap, window=window,
               rs_iters=rs_iters, interp64=interp64)
     if queries.device.type == "cpu":

@@ -453,6 +453,24 @@ def test_gmm_estep_plain_matches_pallas(n, k):
     np.testing.assert_array_equal(via_ops, got)
 
 
+@pytest.mark.parametrize("k", [1, 3, 5, 6, 7])
+def test_gmm_estep_plain_matches_pallas_any_k(k):
+    """Component counts that are not a power of two (and K = 1), where the
+    CUDA kernel masks lanes of its per-sample group, at N = 1 and 31."""
+    for n in (1, 31):
+        x, w, mu, sd = _gmm_inputs(n, k)
+        pad = -n % GMM_N_BLK
+        ref = np.asarray(gmm_estep_pallas(
+            jnp.asarray(np.concatenate([x, np.zeros(pad, np.float32)])),
+            jnp.asarray(w), jnp.asarray(mu), jnp.asarray(sd), interpret=True,
+        ))[:n]
+        t = torch.as_tensor
+        got = gmm_estep_plain(t(x), t(w), t(mu), t(sd)).numpy()
+        assert got.shape == (n, k)
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+        np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -561,3 +579,21 @@ def test_gmm_estep_cuda_matches_plain(cuda, n, k):
     too_many = MAX_COMPONENTS // k + 1  # repeats that exceed the bound
     with pytest.raises(ValueError):
         gmm_estep(args[0], *(torch.cat([a] * too_many) for a in args[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", range(1, MAX_COMPONENTS + 1))
+def test_gmm_estep_cuda_any_k_and_ragged_n(cuda, k):
+    """Every K the kernel takes (lanes c >= K of a next_pow2(K) group
+    masked), at N = 1, 31, 2048 and 8193 (a ragged last warp and CTA):
+    within 1e-5 of the plain version, rows summing to 1 within 1e-5."""
+    for n in (1, 31, 2048, 8193):
+        args = [torch.as_tensor(a, device=cuda) for a in _gmm_inputs(n, k)]
+        before = gmm_estep.launches
+        got = gmm_estep(*args)
+        torch.cuda.synchronize()
+        assert gmm_estep.launches == before + 1
+        assert got.shape == (n, k)
+        want = gmm_estep_plain(*args)
+        assert float((got - want).abs().max()) <= 1e-5, n
+        assert float((got.sum(1) - 1).abs().max()) <= 1e-5, n
