@@ -45,12 +45,20 @@ Imports only the port (``src/repro_torch``) and runs:
                 wave must read its own writes; the live contents must then
                 equal the loaded plus inserted less deleted keys; a profile
                 of 20 write-heavy waves with the tuner;
+  7a. fanout  — an index with BMAT fanout 128 (above K2's one-ballot node of
+                64 keys) through the five write waves of an op tape on the
+                card and on the CPU: lookups, adjusted ranks, overflow counts,
+                contents and arrays identical, K1 and K2 launched;
+  7b. forecaster — a forecaster with 16 mixture components observes one
+                write-heavy wave's insert keys on the card (one K3 launch)
+                and on the CPU: the same mixture and responsibilities;
   8. kernels  — each kernel against its plain torch version on the card: K1
                 and K2 on the main path's final state and on an fb index
                 (radix shift 36), with hits, misses and above-domain keys, K1
-                also in its float64-interpolation mode; K3 on unit-domain
-                samples (N in 1..8193, K in 1..8) and on the
-                forecaster's own inputs;
+                also in its float64-interpolation mode; K2 also at fanouts
+                128 and 256 on the main path's BMAT; K3 on unit-domain
+                samples (N in 1..8193, K in 1..64) and on the forecaster's
+                own inputs;
   9. kernel-level API — on the wikits index (shift 15) and the fb index
                 (shift 36): ``ops.spline_lookup`` (K5) on a 4096-query mix,
                 ``ops.route_and_search`` (K4) over the index's slot array with
@@ -76,8 +84,11 @@ Imports only the port (``src/repro_torch``) and runs:
                 before each launch, ``cold_ms``, and printed beside its
                 shape: knots, rs_iters, widest bucket, W, L and the slot
                 array's offset from a 128-byte line), K3 on one write-heavy
-                router wave's 2048 insert keys (N and K printed), K5 on a
-                4096-query mix on each side of shift 32, K4 in
+                router wave's 2048 insert keys (N and K printed), K2 at
+                fanouts 128 and 256 (``variants``), K5 on a 4096-query mix
+                on each side of shift 32 (printed beside its shape: knots,
+                n_iters, the widest knot range, the share of queries on each
+                of its paths and the bisect rounds they take), K4 in
                 ``route_and_search`` at that batch and in the tiled rank's
                 one launch, warmed up: each kernel's device time
                 per launch (``ms``, from the profiler's device events; for K4
@@ -154,6 +165,9 @@ MIXED_WAVES = 100
 WAVE_SPAN = 1e-5            # range span inside a mixed wave
 K3_OPS = 11          # float32 operations per sample and component
 K3_TOL = 1e-5        # the tolerance of tests/test_kernels.py
+K3_MAX_K = 64        # K3 is compared for K 1 .. K3_MAX_K
+WIDE_FANOUTS = (128, 256)   # K2 above its one-ballot node round of 64 keys
+FORECAST_K = 16      # components of the forecaster phase (16-lane groups)
 
 
 class SmokeFailure(RuntimeError):
@@ -786,15 +800,16 @@ def k3_args(torch, fc, keys):
 
 def compare_k3(torch, fc, batch):
     """K3 against its plain version on the card: unit-domain samples for N
-    in 1..8193 and K in 1..8, and the forecaster's own inputs for one
-    main-path insert batch. Returns the max abs error."""
+    in 1..8193 and K in 1..K3_MAX_K (lane groups of 1 to 32, then a warp
+    per sample), and the forecaster's own inputs for one main-path insert
+    batch. Returns the max abs error."""
     from repro_torch.kernels.gmm_estep import gmm_estep
     from repro_torch.kernels.ref import gmm_estep_plain
 
     rng = np.random.default_rng(3)
     cases = []
     for n in (1, 31, 100, 2048, 5000, 8193):
-        for k in range(1, 9):
+        for k in range(1, K3_MAX_K + 1):
             arrays = (rng.uniform(0, 1, n), rng.dirichlet(np.ones(k)),
                       np.sort(rng.uniform(0, 1, k)), rng.uniform(0.01, 0.3, k))
             cases.append((f"N={n} K={k}", [
@@ -842,6 +857,127 @@ def k3_timing(torch, fc, ins):
         n=n, k=k,
         forecaster_estep_ms=estep_ms,
     )
+
+
+def wide_fanout_k2(torch, index, queries):
+    """K2 at each of WIDE_FANOUTS on the main path's BMAT (its keys, fences
+    made at that fanout) against its plain version, and its device time
+    per launch beside ``torch.searchsorted``. Returns (max abs error,
+    variants for the kernels line)."""
+    from repro_torch.core.bmat import _make_fences
+    from repro_torch.kernels.bmat_rank import bmat_rank, bmat_rank_plain
+
+    keys = index.bmat.state.keys
+    q = torch.as_tensor(queries, device=keys.device)
+    err, variants = 0, {}
+    for fanout in WIDE_FANOUTS:
+        fences = _make_fences(keys, fanout)
+        args = (keys, fences, q)
+        kw = dict(cap=keys.shape[0], nf=fences.shape[0], fanout=fanout)
+        r = bmat_rank(*args, **kw)
+        r0 = bmat_rank_plain(*args, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(r, r0),
+                f"K2 at fanout {fanout} differs from its plain version")
+        err = max(err, int((r - r0).abs().max()))
+        n_bytes = q.shape[0] * 16 + read_footprint(
+            torch, bmat_rank_plain, args, kw, dict(keys=keys, fences=fences))
+        variants[f"fanout_{fanout}"] = dict(
+            ms=device_ms(torch, lambda: bmat_rank(*args, **kw), 200),
+            plain_ms=device_ms(torch, lambda: bmat_rank_plain(*args, **kw),
+                               10),
+            library_ms=device_ms(torch, lambda: torch.searchsorted(keys, q),
+                                 200),
+            bound_ms=bound_ms(n_bytes, 0)[0], cap=kw["cap"], nf=kw["nf"])
+    print(f"kernels[wide fanout]: K2 equals its plain version at fanouts "
+          f"{WIDE_FANOUTS} on the main path's BMAT ({index.bmat.size} keys "
+          f"in {keys.shape[0]}); " + json.dumps(variants), flush=True)
+    return err, variants
+
+
+def fanout_path(torch):
+    """An index with ``bmat_fanout`` WIDE_FANOUTS[0] and the fused locate
+    through the op tape's write waves on the card, counted from zero, and
+    on the CPU: lookups and adjusted ranks after every op, overflow counts,
+    live contents and the slot and BMAT arrays must be identical, and K1
+    and K2 must have launched on the card. Returns the launch counts."""
+    from repro_torch.core import UpLIF, UpLIFConfig
+    from repro_torch.kernels import ops
+
+    fanout = WIDE_FANOUTS[0]
+    base, ops_tape, probes = tape(seed=10)
+    cfg = UpLIFConfig(bmat_fanout=fanout, locate="fused")
+    results, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        idx = UpLIF(base, base + 1, cfg, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        out = []
+        for op in ops_tape:
+            if op[0] == "insert":
+                out.append(np.asarray(idx.insert(op[1], op[2])))
+            else:
+                out.append(idx.delete(op[1]))
+            out.extend(idx.lookup(probes))
+            out.append(idx.adjusted_predict(probes))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        out.extend(idx.extract_live())
+        arrays = [a.cpu().numpy() for a in (*idx.slots, idx.bmat.state.keys,
+                                            idx.bmat.state.vals)]
+        results[dev] = (out, arrays, idx.bmat.size, idx.fstatic().fanout)
+    require(all(counts[k] > 0 for k in UPLIF_KERNELS),
+            f"fanout {fanout}: a kernel was not launched: {counts}")
+    cuda, cpu = results["cuda"], results["cpu"]
+    require(cuda[3] == fanout and cuda[2] > 2 * fanout,
+            f"fanout {fanout}: static fanout {cuda[3]}, BMAT size {cuda[2]}")
+    _same_outputs(cuda[0], cpu[0], f"fanout {fanout}: card and CPU differ")
+    _same_outputs(cuda[1], cpu[1],
+                  f"fanout {fanout}: card and CPU slot or BMAT arrays differ")
+    print(f"fanout path: bmat_fanout {fanout}, {len(ops_tape)} write waves, "
+          f"BMAT {cuda[2]} keys; card == CPU (results, ranks, overflow "
+          f"counts, contents, arrays); launches {counts}", flush=True)
+    return counts
+
+
+def forecaster_path(torch, lo, hi, batch):
+    """A forecaster with FORECAST_K components on the card (K3 by default
+    there) observes one write-heavy wave's insert keys, counted from zero;
+    the same forecaster on the CPU (K3's plain version) must give the same
+    mixture (rtol 1e-4 on the components that hold samples) and
+    responsibilities within K3_TOL on the next batch. Returns the launch
+    counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.tuning.forecast import ForecastConfig, UpdateForecaster
+
+    cfg = ForecastConfig(n_components=FORECAST_K)
+    fc = UpdateForecaster(lo, hi, cfg, device="cuda")
+    ref = UpdateForecaster(lo, hi, ForecastConfig(
+        n_components=FORECAST_K, use_kernel=True), device="cpu")
+    require(fc.cfg.use_kernel, "the forecaster on CUDA does not use K3")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fc.observe(batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(counts["gmm_estep"] == 1, f"forecaster: K3 launches {counts}")
+    ref.observe(batch)
+    live = ref._s0 >= 1e-6
+    require(np.array_equal(fc._s0 >= 1e-6, live) and all(
+        np.allclose(a.numpy()[live], b.numpy()[live], rtol=1e-4, atol=0)
+        for a, b in zip(fc.gmm, ref.gmm)),
+        "forecaster: the mixture on the card differs from the CPU's")
+    x = np.asarray(batch, dtype=np.float64)[::-1].copy()
+    err = float(np.abs(fc._responsibilities(x)
+                       - ref._responsibilities(x)).max())
+    require(err <= K3_TOL, f"forecaster: responsibilities differ by {err}")
+    print(f"forecaster path: K = {FORECAST_K}, {len(batch)} insert keys "
+          f"observed on the card; mixture == CPU's on {int(live.sum())} "
+          f"live components, responsibilities within {err:.3g}; launches "
+          f"{counts}", flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1132,6 +1268,30 @@ def n_passes(torch, seg_start) -> int:
     return max(1, -(-size // ops.Q_BLK))
 
 
+def k5_shape(torch, m, q, n_iters) -> dict:
+    """What sets K5's chain of reads on one index: the knots, the knot
+    bisect's steps, the widest knot range of a radix bucket, and the share
+    of the queries ``q`` on each of the kernel's paths (one round; the
+    bisect over a converging range wider than one round; the bisect
+    anywhere else) with a count of queries per number of bisect rounds."""
+    from repro_torch.kernels.spline_lookup import spline_lookup_paths
+
+    t = m.table.long()
+    n_knots = m.spline_keys.shape[0]
+    lo = torch.clamp(t[:-1], min=1) - 1
+    hi = torch.clamp(t[1:], 0, n_knots - 2)
+    path, rounds = spline_lookup_paths(m.table, m.spline_keys, q,
+                                       shift=int(m.shift), n_iters=n_iters)
+    n = q.shape[0]
+    share = torch.bincount(path, minlength=3).tolist()
+    return dict(
+        n_knots=n_knots, n_iters=n_iters,
+        widest_range=int((hi - lo + 1).max()),
+        one_round=share[0] / n, wide_bisect=share[1] / n,
+        other_bisect=share[2] / n,
+        queries_by_rounds=torch.bincount(rounds).tolist())
+
+
 def api_timing(torch, wikits, fb, wikits_live, fb_live):
     """K5 at a BATCH-query mix on both sides of shift 32, K4 in
     ``route_and_search`` at that batch (the kernel's own launch, into a
@@ -1160,8 +1320,10 @@ def api_timing(torch, wikits, fb, wikits_live, fb_live):
             torch, spline_lookup_plain, args, kw,
             dict(table=m.table, spline_keys=m.spline_keys,
                  spline_pos=m.spline_pos))
+        shape = k5_shape(torch, m, q, st.n_search_iters)
+        print(f"K5 shape[{label}]: {json.dumps(shape)}", flush=True)
         k5[label] = dict(
-            shift=kw["shift"],
+            shift=kw["shift"], shape=shape,
             ms=device_ms(torch, lambda: spline_lookup(*args, **kw), 200),
             call_ms=call_ms(torch, lambda: ops.spline_lookup(
                 m.table, m.spline_keys, m.spline_pos, m.shift, q,
@@ -1525,6 +1687,9 @@ def main() -> int:
     k3_batch = r_runner.next_batch(0.5)[1]  # one write-heavy wave's inserts
     profile_waves(torch, router, r_runner, rate=0.5, waves=20, tuner=tuner,
                   label="router")
+    fanout_launches = fanout_path(torch)
+    fc_launches = forecaster_path(torch, float(keys[0]), float(keys[-1]),
+                                  k3_batch)
 
     rng = np.random.default_rng(1)
     errs = [
@@ -1563,7 +1728,10 @@ def main() -> int:
     batch = np.concatenate(runner.next_batch(0.5))
     errs.append(compare_index_kernels(torch, index, batch,
                                       "wikits main-path batch"))
+    wide_err, wide_k2 = wide_fanout_k2(torch, index, batch)
+    errs.append((0, wide_err))
     timing = kernel_timing(torch, index, batch)
+    timing["bmat_rank"]["variants"] = wide_k2
     timing["gmm_estep"] = k3_timing(torch, tuner.forecaster, k3_batch)
     timing["tile_search"] = dict(
         k4_timing, variants={"tiled_rank_one_pass": k4_timing.pop("rank_pass")})
@@ -1581,7 +1749,9 @@ def main() -> int:
     }
     paths = {"uplif": launches, "router": r_launches,
              "uplif_range": range_launches, "router_range": rr_launches,
-             "router_waves": w_launches, "kernel_api": api_launches}
+             "router_waves": w_launches, "kernel_api": api_launches,
+             "uplif_fanout128": fanout_launches,
+             "forecaster_k16": fc_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
@@ -1595,7 +1765,8 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
-                                 "library_cold_ms", "variants") if k in t},
+                                 "library_cold_ms", "shape", "variants")
+               if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K1 (fused locate), K2 (BMAT rank), K3 (GMM E-step) and
-K4 (tile search) kernels of two source trees in turns on one GPU.
+"""Time the port's K1 (fused locate), K2 (BMAT rank), K3 (GMM E-step), K4
+(tile search) and K5 (spline lookup) kernels of two source trees in turns
+on one GPU.
 
     python3 kernel_ab.py OTHER_TREE [--out PATH]
 
@@ -14,10 +15,14 @@ offset from a 128-byte line) and BMAT, K3's inputs as the forecaster gives
 them for one write-heavy wave's 2048 insert keys (K = 4, after it has
 observed 20 waves) and a sweep of K 1..8 at N 1..8193, K4's route batch (a
 4096-query mix routed by ``ops.spline_lookup`` over the index's 10.5M-slot
-array) and a rank batch with duplicated runs. Then each timing runs in a
-fresh process that imports ``repro_torch`` from one tree (building that
-tree's kernels into its own ``build/``), in the order OTHER, THIS, THIS,
-OTHER, and prints one JSON line:
+array) and a rank batch with duplicated runs, K5's 4096-query mixes on
+that index (radix shift 15) and on ``chip_smoke.py``'s fb index (2M keys
+bulk-loaded, shift 36), and, for this tree only, K3 at K 16, 33 and 64 and
+K2 at fanouts 128 and 256 on the main path's BMAT (the other tree may
+refuse them). Then each timing runs in a fresh process that imports
+``repro_torch`` from one tree (building that tree's kernels into its own
+``build/``), in the order OTHER, THIS, THIS, OTHER, and prints one JSON
+line:
 
   * ``k1_ms`` / ``k1_cold_ms``: K1's device time per launch, warm and with
     the L2 flushed by a read before each launch, ``k1_call_ms`` through
@@ -36,13 +41,20 @@ OTHER, and prints one JSON line:
   * ``tiled_rank_device_ms`` / ``tiled_rank_call_ms``: ``ops.bmat_rank`` over
     the slot array on the rank batch (every K4 launch it makes, and the
     host's part), with its K4 launches per call;
+  * ``k5_ms`` / ``k5_fb_ms``: K5's device time per launch on the wikits
+    and fb mixes (warm: its model is 0.2-0.4 MB), ``k5_call_ms`` /
+    ``k5_fb_call_ms`` through the wrapper;
+  * this tree only: ``k3_k16_ms``, ``k3_k33_ms``, ``k3_k64_ms`` and
+    ``k2_fanout128_ms``, ``k2_fanout256_ms``;
   * ``floor_ms`` / ``floor_cold_ms``: one trivial launch (``add_`` on 4096
     int64), warm and after the read flush.
 
 Every run's outputs (K1's ``(j, start)``, K3's responsibilities on the
 forecaster's inputs and on the sweep, K2's ranks, K4's route entries, the
-tiled ranks) must equal the first run's, bit for bit. The summary goes to stdout and to ``--out`` (by
-default ``build/kernel_ab/summary.json``).
+tiled ranks, K5's positions at both shifts, and this tree's wide K3 and K2
+cases) must equal those of the first run that has them, bit for bit. The
+summary goes to stdout and to ``--out`` (by default
+``build/kernel_ab/summary.json``).
 """
 from __future__ import annotations
 
@@ -55,6 +67,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "kernel_ab"
+WIDE_K = (16, 33, 64)     # K3 above the parent's bound of 8 (this tree)
+WIDE_FANOUTS = (128, 256)  # K2 above the parent's bound of 64 (this tree)
 
 
 def make_inputs(path: Path) -> None:
@@ -63,6 +77,7 @@ def make_inputs(path: Path) -> None:
 
     import chip_smoke as cs
     from repro_torch.core import UpLIF
+    from repro_torch.core.bmat import _make_fences
     from repro_torch.data import WorkloadRunner, make_dataset
     from repro_torch.kernels import ops
     from repro_torch.tuning.forecast import UpdateForecaster
@@ -89,6 +104,28 @@ def make_inputs(path: Path) -> None:
     p = ops.spline_lookup(m.table, m.spline_keys, m.spline_pos, m.shift, q,
                           st.n_search_iters)
     route = ops._route_tiles(sk, q, p)[3]
+    fb_keys = WorkloadRunner(make_dataset("fb", cs.FB_KEYS), init_frac=0.5,
+                             batch=cs.BATCH, seed=0).init_keys
+    fb = UpLIF(fb_keys, fb_keys + 1)
+    k5 = {}
+    for label, idx, keys_in, seed in (("wikits", index, live, 21),
+                                      ("fb", fb, fb_keys, 22)):
+        fm, fst = idx.rs_model, idx.rs_static
+        k5[label] = dict(
+            args=[fm.table.cpu(), fm.spline_keys.cpu(), fm.spline_pos.cpu(),
+                  cs.api_batches(torch, idx, keys_in, seed)[0].cpu()],
+            kw=dict(shift=int(fm.shift), n_iters=fst.n_search_iters))
+        print(f"inputs: K5[{label}] " + json.dumps(cs.k5_shape(
+            torch, fm, k5[label]["args"][3].cuda(), fst.n_search_iters)),
+            flush=True)
+    del fb
+    wide_k3 = [[torch.as_tensor(a.astype(np.float32)) for a in (
+        k3[0].cpu().numpy(), rng.dirichlet(np.ones(k)),
+        np.sort(rng.uniform(0, 1, k)), rng.uniform(0.01, 0.3, k))]
+        for k in WIDE_K]
+    bk = k2["args"][0]
+    wide_k2 = [dict(fences=_make_fences(bk, f).cpu(), fanout=f)
+               for f in WIDE_FANOUTS]
     cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
     torch.save(dict(
         k1_args=cpu(k1["args"]), k1_kw=k1["kw"],
@@ -96,7 +133,8 @@ def make_inputs(path: Path) -> None:
         k3_args=cpu(k3), k3_sweep=sweep,
         k2_args=cpu(k2["args"]), k2_kw=k2["kw"], slots=sk.cpu(),
         route=cpu(route), route_q=q.cpu(), rank_q=qq.cpu(),
-        fences=cs._fences(torch, sk).cpu(),
+        fences=cs._fences(torch, sk).cpu(), k5=k5, wide_k3=wide_k3,
+        wide_k2=wide_k2,
     ), path)
     print(f"inputs: K1 {json.dumps(cs.k1_shape(k1))}; K3 N "
           f"{k3[0].shape[0]}, K {k3[1].shape[0]}; BMAT cap {k2['kw']['cap']}, "
@@ -106,7 +144,7 @@ def make_inputs(path: Path) -> None:
           flush=True)
 
 
-def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
+def time_tree(tree: Path, inputs: Path, outputs: Path, wide: bool) -> None:
     import torch
 
     import chip_smoke as cs
@@ -116,7 +154,7 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.bmat_rank import bmat_rank
     from repro_torch.kernels.gmm_estep import gmm_estep
-    from repro_torch.kernels.spline_lookup import fused_locate
+    from repro_torch.kernels.spline_lookup import fused_locate, spline_lookup
     from repro_torch.kernels.tile_search import tile_search
 
     cs.require(Path(repro_torch.__file__).resolve().is_relative_to(
@@ -126,6 +164,8 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     def cuda(v):
         if torch.is_tensor(v):
             return v.cuda()
+        if isinstance(v, dict):
+            return {k: cuda(t) for k, t in v.items()}
         return [cuda(t) for t in v] if isinstance(v, list) else v
 
     d = {k: cuda(v) for k, v in torch.load(inputs).items()}
@@ -145,6 +185,13 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     k4 = lambda: tile_search(sk, *d["route"], pass_idx=0, out=out)  # noqa: E731
     lib4 = lambda: torch.searchsorted(sk, d["route_q"], right=True) - 1  # noqa: E731
     tiled = lambda: ops.bmat_rank(sk, d["fences"], d["rank_q"], 16)  # noqa: E731
+    k5 = {label: (lambda a=c["args"], kw=c["kw"]: spline_lookup(*a, **kw))
+          for label, c in d["k5"].items()}
+    k3w = {k: (lambda a=a: gmm_estep(*a))
+           for k, a in zip(WIDE_K, d["wide_k3"])} if wide else {}
+    k2w = {c["fanout"]: (lambda c=c: bmat_rank(
+        bkeys, c["fences"], q2, cap=kw["cap"], nf=c["fences"].shape[0],
+        fanout=c["fanout"])) for c in d["wide_k2"]} if wide else {}
 
     ops.reset_launch_counts()
     ranks = tiled()
@@ -156,7 +203,11 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
     sweep = torch.cat([gmm_estep(*a).reshape(-1) for a in d["k3_sweep"]])
     torch.save(dict(k1_j=j.cpu(), k1_start=start.cpu(), k3=k3().cpu(),
                     k3_sweep=sweep.cpu(), k2=k2().cpu(), k4=out.cpu(),
-                    tiled=ranks.cpu()), outputs)
+                    tiled=ranks.cpu(),
+                    **{f"k5_{lb}": fn().cpu() for lb, fn in k5.items()},
+                    **{f"k3_k{k}": fn().cpu() for k, fn in k3w.items()},
+                    **{f"k2_fanout{f}": fn().cpu() for f, fn in k2w.items()}),
+               outputs)
     res = {
         "tree": str(tree), "card": cs.card_line(),
         "k1_ms": cs.device_ms(torch, k1, 500),
@@ -176,6 +227,14 @@ def time_tree(tree: Path, inputs: Path, outputs: Path) -> None:
         "tiled_rank_device_ms": cs.device_ms(torch, tiled, 50),
         "tiled_rank_call_ms": cs.call_ms(torch, tiled, 50),
         "tiled_rank_k4_launches": tiled_k4,
+        "k5_ms": cs.device_ms(torch, k5["wikits"], 500),
+        "k5_call_ms": cs.call_ms(torch, k5["wikits"], 500),
+        "k5_fb_ms": cs.device_ms(torch, k5["fb"], 500),
+        "k5_fb_call_ms": cs.call_ms(torch, k5["fb"], 500),
+        **{f"k3_k{k}_ms": cs.device_ms(torch, fn, 500)
+           for k, fn in k3w.items()},
+        **{f"k2_fanout{f}_ms": cs.device_ms(torch, fn, 500)
+           for f, fn in k2w.items()},
         "floor_ms": cs.device_ms(torch, lambda: x.add_(1), 500),
         "floor_cold_ms": cs.cold_ms(torch, lambda: x.add_(1), 200),
     }
@@ -188,6 +247,7 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=WORK / "summary.json")
     ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--outputs", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--wide", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -199,36 +259,35 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     inputs = WORK / "inputs.pt"
     if args.time is not None:
-        time_tree(args.time, inputs, args.outputs)
+        time_tree(args.time, inputs, args.outputs, args.wide)
         return 0
     if args.other is None or not (args.other / "src" / "repro_torch").is_dir():
         ap.error("OTHER_TREE must be a checkout with src/repro_torch")
     make_inputs(inputs)
-    runs = []
+    runs, first = [], {}
     for k, tree in enumerate((args.other, ROOT, ROOT, args.other)):
         outputs = WORK / f"outputs{k}.pt"
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--time",
-             str(tree.resolve()), "--outputs", str(outputs)],
+             str(tree.resolve()), "--outputs", str(outputs),
+             *(["--wide"] if tree is ROOT else [])],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-        first = torch.load(WORK / "outputs0.pt")
-        got = torch.load(outputs)
-        for name in first:
-            if not torch.equal(first[name], got[name]):
+        for name, out in torch.load(outputs).items():
+            if not torch.equal(first.setdefault(name, out), out):
                 print(f"kernel_ab: run {k} differs on {name}", file=sys.stderr)
                 return 1
-    metrics = [k for k, v in runs[0].items() if isinstance(v, (int, float))]
+    metrics = [k for k, v in runs[1].items() if isinstance(v, (int, float))]
     summary = {
         "order": ["other", "this", "this", "other"],
         "other": str(args.other), "card": runs[0]["card"],
-        "runs": {m: [r[m] for r in runs] for m in metrics},
+        "runs": {m: [r.get(m) for r in runs] for m in metrics},
         "median_other": {m: statistics.median([runs[0][m], runs[3][m]])
-                         for m in metrics},
+                         for m in metrics if m in runs[0]},
         "median_this": {m: statistics.median([runs[1][m], runs[2][m]])
                         for m in metrics},
     }

@@ -8,10 +8,10 @@ in ``[0, cap]``.
 
 The CUDA source is ``csrc/bmat_rank.cu``; its header says what bounds it on
 the H100 (dependent reads from L2, then the launch) and what its design (a
-warp per query, a 32-ary fence search and one ballot over the node) does
-about it. Its node round reads at most ``MAX_FANOUT`` keys, so the wrapper
-refuses a larger fanout on every device. ``bmat_rank`` below launches it
-for CUDA tensors and runs ``bmat_rank_plain`` for CPU tensors;
+warp per query, a 32-ary fence search, one ballot over a node of up to 64
+keys and a 32-ary count over a wider one) does about it. It takes any
+fanout, as the reference does. ``bmat_rank`` below launches it for CUDA
+tensors and runs ``bmat_rank_plain`` for CPU tensors;
 ``bmat_rank.launches`` counts the CUDA launches.
 """
 from __future__ import annotations
@@ -21,8 +21,6 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import key_lt
-
-MAX_FANOUT = 64  # keys per node that the kernel's node round reads
 
 
 def bmat_rank_plain(keys, fences, queries, sid=None, *, cap: int, nf: int,
@@ -56,10 +54,11 @@ def bmat_rank_plain(keys, fences, queries, sid=None, *, cap: int, nf: int,
 def bmat_rank(keys, fences, queries, sid=None, *, cap: int, nf: int,
               fanout: int):
     """K2: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Same contract as ``bmat_rank_plain``, for a fanout of at most
-    ``MAX_FANOUT``."""
-    if not 1 <= fanout <= MAX_FANOUT:
-        raise ValueError(f"K2 takes a fanout of 1 to {MAX_FANOUT}, got {fanout}")
+    tensors. Same contract as ``bmat_rank_plain``, for any fanout, fence
+    count and capacity of at least 1."""
+    if min(fanout, nf, cap) < 1:
+        raise ValueError(f"K2 needs fanout, nf and cap >= 1, got {fanout}, "
+                         f"{nf}, {cap}")
     if queries.device.type == "cpu":
         return bmat_rank_plain(keys, fences, queries, sid, cap=cap, nf=nf,
                                fanout=fanout)

@@ -26,12 +26,22 @@
 //     lo + (l + 1) * step - 1 (clamped to hi), step = ceil((hi - lo + 1) /
 //     32), and __popc(__ballot_sync(fence < q)) narrows the range to one
 //     step, until it holds one fence: ceil(log32 nf) dependent reads;
-//   * one round over the node [node_lo, min(node_lo + fanout, kend)): the
-//     lanes read its keys (one each for fanout <= 32, two for 64) and
-//     __popc(__ballot_sync(key < q)) is the rank inside it;
+//   * for fanout <= 64, one round over the node [node_lo, min(node_lo +
+//     fanout, kend)): the lanes read its keys (one each for fanout <= 32,
+//     two for 64) and __popc(__ballot_sync(key < q)) is the rank inside it;
+//   * for a wider node, a 32-ary count over it: while more than 32 keys
+//     are left, lane l reads the last key of the l-th of 32 equal chunks
+//     and the ballot of those < q names the one chunk where the keys pass
+//     q (its last key, >= q, drops out); then one round counts the rest.
+//     That is ceil(log32 fanout) dependent reads (2 up to fanout 1024),
+//     one key per lane each. Reading the whole node in 32-key chunks
+//     instead would be one round, but fanout / 32 loads per lane (32 at
+//     fanout 1024, 8 KB a query), where the search reads 512 bytes;
 //   * the arrays are read through the read-only path.
 // So a query takes ceil(log32 nf) + 1 dependent reads (4 on the main
-// path's BMAT) instead of 20. What is left is L2 latency and the launch.
+// path's BMAT: fanout 16) instead of 20, and ceil(log32 nf) +
+// ceil(log32 fanout) above fanout 64. What is left is L2 latency and the
+// launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +50,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxFanout = 64;  // the node round reads two keys per lane
+constexpr int kRoundFanout = 64;  // the node round reads two keys per lane
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __global__ void __launch_bounds__(kThreads) bmat_rank_kernel(
     const long long* __restrict__ keys,     // [S * cap]
@@ -64,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) bmat_rank_kernel(
         const long long step = (hi - lo + 32) >> 5;
         long long at = lo + (lane + 1) * step - 1;
         at = at < hi ? at : hi;
-        const int below = __popc(__ballot_sync(0xFFFFFFFFu,
+        const int below = __popc(__ballot_sync(kFull,
                                                __ldg(fences + at) < q));
         // the probes are sorted, so `below` of them lie under q; lane 31
         // probes hi, which is >= q
@@ -79,13 +90,42 @@ __global__ void __launch_bounds__(kThreads) bmat_rank_kernel(
     const long long node_lo = kbase + (f > 0 ? f : 0) * fanout;
     const long long kend = kbase + cap;
     const long long node_hi = node_lo + fanout < kend ? node_lo + fanout : kend;
-    const long long k0 = node_lo + lane;
-    const long long k1 = k0 + 32;
-    const bool lt0 = k0 < node_hi && __ldg(keys + k0) < q;
-    const bool lt1 = k1 < node_hi && __ldg(keys + k1) < q;
-    const long long r = node_lo - kbase
-        + __popc(__ballot_sync(0xFFFFFFFFu, lt0))
-        + __popc(__ballot_sync(0xFFFFFFFFu, lt1));
+    long long r;
+    if (fanout <= kRoundFanout) {  // the same for every lane
+        const long long k0 = node_lo + lane;
+        const long long k1 = k0 + 32;
+        const bool lt0 = k0 < node_hi && __ldg(keys + k0) < q;
+        const bool lt1 = k1 < node_hi && __ldg(keys + k1) < q;
+        r = node_lo - kbase
+            + __popc(__ballot_sync(kFull, lt0))
+            + __popc(__ballot_sync(kFull, lt1));
+    } else {
+        // the rank is a + the count of keys < q in [a, z)
+        long long a = node_lo;
+        long long z = node_hi;
+        while (z - a > 32) {  // the same for every lane
+            const long long step = (z - a + 31) >> 5;
+            const long long first = a + lane * step;  // of chunk `lane`
+            long long last = first + step - 1;
+            last = last < z - 1 ? last : z - 1;
+            // the chunks are sorted, so the `below` ones < q come first
+            const int below = __popc(__ballot_sync(
+                kFull, first < z && __ldg(keys + last) < q));
+            const long long na = a + below * step;
+            if (na >= z) {  // every key of the node is < q
+                a = z;
+                break;
+            }
+            // chunk `below` holds the first key >= q; its last key is one
+            a = na;
+            z = (na + step < z ? na + step : z) - 1;
+        }
+        if (a < z) {
+            const long long at = a + lane;
+            a += __popc(__ballot_sync(kFull, at < z && __ldg(keys + at) < q));
+        }
+        r = a - kbase;
+    }
     if (lane == 0) out[i] = r < cap ? r : cap;
 }
 
@@ -96,7 +136,7 @@ extern "C" int bmat_rank_launch(
     const void* sid, void* out, int n, int cap, int nf, int fanout,
     void* stream) {
     if (n <= 0) return 0;
-    if (fanout < 1 || fanout > kMaxFanout || nf < 1 || cap < 1)
+    if (fanout < 1 || nf < 1 || cap < 1)
         return (int)cudaErrorInvalidValue;
     const int blocks = (n + kWarps - 1) / kWarps;
     bmat_rank_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(

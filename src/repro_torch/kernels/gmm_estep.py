@@ -9,11 +9,12 @@ every wave with inserts.
 The CUDA source is ``csrc/gmm_estep.cu``; its header says what bounds it on
 the H100 (the launch, at the forecaster's sizes, and each thread's serial
 work inside it) and how it rounds. A sample gets a group of
-``next_pow2(K)`` lanes, one component each: every lane takes the logs of
-its own parameters, the max is a butterfly over the group, and the sum
-adds the K exponentials in component order, so the kernel rounds exactly
-as a one-thread-per-sample loop does. ``gmm_estep`` below launches it for
-CUDA tensors and runs ``ref.gmm_estep_plain`` for CPU tensors;
+``next_pow2(K)`` lanes, one component each (above K = 32 a warp, lane l
+taking components l, l + 32, ...): every lane takes the logs of its own
+parameters, the max is a butterfly over the group, and the sum adds the K
+exponentials in component order, so the kernel rounds exactly as a
+one-thread-per-sample loop does, for any K. ``gmm_estep`` below launches
+it for CUDA tensors and runs ``ref.gmm_estep_plain`` for CPU tensors;
 ``gmm_estep.launches`` counts the CUDA launches.
 """
 from __future__ import annotations
@@ -23,21 +24,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gmm_estep_plain
 
-MAX_COMPONENTS = 8  # the kernel's compile-time bound on K
-
 
 def gmm_estep(x, weights, means, stds):
     """K3: the CUDA kernel for CUDA tensors, the plain version for CPU
     tensors. ``x`` float32 [N]; ``weights``/``means``/``stds`` float32 [K]
-    with K <= ``MAX_COMPONENTS``. Returns float32 [N, K]."""
+    with K >= 1. Returns float32 [N, K]."""
     if x.device.type == "cpu":
         return gmm_estep_plain(x, weights, means, stds)
     if x.device.type != "cuda":
         raise ValueError(f"no GMM E-step kernel for {x.device}")
     k = weights.shape[0]
-    if not 1 <= k <= MAX_COMPONENTS:
-        raise ValueError(f"the E-step kernel takes 1..{MAX_COMPONENTS} "
-                         f"components, got {k}")
+    if k < 1:
+        raise ValueError("the E-step kernel needs at least one component")
     for name, t, n in (("x", x, x.shape[0]), ("weights", weights, k),
                        ("means", means, k), ("stds", stds, k)):
         if t.device != x.device or t.dtype != torch.float32:

@@ -37,8 +37,11 @@ position. Its JAX adapter takes the Pallas kernel only for radix shifts of
 32 and above and the plain ``ref.spline_lookup_ref`` below, and the two
 round differently; the CUDA source ``csrc/spline_lookup.cu`` has both
 roundings behind a mode flag that ``spline_lookup`` sets from the shift, so
-a CUDA tensor always launches the kernel. ``spline_lookup.launches``
-counts its CUDA launches.
+a CUDA tensor always launches the kernel. It gives a query a warp, finds
+the knot segment in one 32-lane round where that is the bisect's answer,
+and runs the reference's bisect five steps per round of reads everywhere
+else; ``spline_lookup_paths`` says which queries take which path.
+``spline_lookup.launches`` counts its CUDA launches.
 """
 from __future__ import annotations
 
@@ -202,6 +205,82 @@ fused_locate.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _bucket_range(table, n_knots: int, queries, shift: int):
+    """K5's radix bucket and the bisect's knot range ``[lo, hi]`` per
+    query, int64."""
+    n_buckets = table.shape[0] - 2
+    if shift >= 32:
+        b = (queries >> 32) >> (shift - 32)
+    else:
+        b = (queries >> shift) & 0xFFFFFFFF
+        b = torch.where(b >= 1 << 31, b - (1 << 32), b)  # int32 wrap
+    b = torch.clamp(b, 0, n_buckets - 1)
+    lo = torch.clamp(table[b].to(torch.int64), min=1) - 1
+    hi = torch.clamp(table[b + 1].to(torch.int64), 0, n_knots - 2)
+    return lo, hi
+
+
+K5_ROUND_KNOTS = 31  # the widest knot range of K5's one round
+K5_TREE_DEPTH = 5    # bisect steps per round of reads in K5's bisect path
+
+
+def _one_round(spline_keys, queries, lo, hi, left):
+    """Where K5's kernel takes its one round from the bisect state
+    ``(lo, hi)`` with ``left`` steps to go: the range holds 1 to
+    ``K5_ROUND_KNOTS`` knots, the steps converge on it, and the knots
+    <= q come first in it (as the round's ballot sees them)."""
+    n_knots = spline_keys.shape[0]
+    width = hi - lo + 1
+    converges = torch.where(left >= K5_TREE_DEPTH, 32,
+                            1 << torch.clamp(left, 0, K5_TREE_DEPTH))
+    lanes = torch.arange(1, K5_ROUND_KNOTS, device=queries.device)
+    idx = torch.clamp(lo[:, None] + lanes, 0, n_knots - 1)
+    le = (lanes < width[:, None]) & key_leq(spline_keys[idx], queries[:, None])
+    first = (le.to(torch.int64).cummin(dim=1).values == le).all(dim=1)
+    return ((width >= 1) & (width <= K5_ROUND_KNOTS) & (width <= converges)
+            & first)
+
+
+def spline_lookup_paths(table, spline_keys, queries, *, shift: int,
+                        n_iters: int):
+    """Which path each query takes through the K5 kernel, as the kernel
+    decides it, and how many bisect rounds of reads it makes.
+
+    Returns ``(path, rounds)``, int64 [N] each. ``path`` is 0 where the
+    kernel's first look finds a range of 1 to ``K5_ROUND_KNOTS`` knots
+    that ``n_iters`` steps converge on, with the knots <= q first in it
+    (one round, no bisect round); 1 where the range converges but is wider
+    than one round; 2 for every other case (``n_iters`` too small to
+    converge, lo > hi, knots <= q not first). Off path 0 the kernel runs
+    the bisect, ``K5_TREE_DEPTH`` steps per round, until the rest of the
+    range fits one round, the bisect has converged or ``n_iters`` steps
+    are done; ``rounds`` counts those rounds."""
+    n_knots = spline_keys.shape[0]
+    lo, hi = _bucket_range(table, n_knots, queries, shift)
+    left = torch.full_like(lo, n_iters)
+    first = _one_round(spline_keys, queries, lo, hi, left)
+    width = hi - lo + 1
+    converges = (width >= 1) & (width <= 1 << max(0, min(n_iters, 40)))
+    path = torch.where(first, 0, torch.where(
+        converges & (width > K5_ROUND_KNOTS), 1, 2))
+    rounds = torch.zeros_like(lo)
+    live = ~first
+    while bool(live.any()):
+        live &= (left > 0) & ~((hi <= lo) & (lo <= hi + 1))
+        d = torch.clamp(left, max=K5_TREE_DEPTH)
+        rounds += live
+        for step in range(K5_TREE_DEPTH):
+            on = live & (step < d)
+            mid = (lo + hi + 1) >> 1
+            go = key_leq(spline_keys[torch.clamp(mid, 0, n_knots - 1)],
+                         queries)
+            lo = torch.where(on & go, mid, lo)
+            hi = torch.where(on & ~go, mid - 1, hi)
+        left = torch.where(live, left - d, left)
+        live &= ~_one_round(spline_keys, queries, lo, hi, left)
+    return path, rounds
+
+
 def spline_lookup_plain(table, spline_keys, spline_pos, queries, *,
                         shift: int, n_iters: int):
     """Plain torch version of K5: the float32 predicted position of each
@@ -214,16 +293,8 @@ def spline_lookup_plain(table, spline_keys, spline_pos, queries, *,
     the bucket ``int32(q >> shift)`` (wrapped before the clip), each int64
     delta rounded to float32 once, and a separate multiply and add."""
     n_knots = spline_keys.shape[0]
-    n_buckets = table.shape[0] - 2
     split = shift >= 32
-    if split:
-        b = (queries >> 32) >> (shift - 32)
-    else:
-        b = (queries >> shift) & 0xFFFFFFFF
-        b = torch.where(b >= 1 << 31, b - (1 << 32), b)  # int32 wrap
-    b = torch.clamp(b, 0, n_buckets - 1)
-    lo = torch.clamp(table[b].to(torch.int64), min=1) - 1
-    hi = torch.clamp(table[b + 1].to(torch.int64), 0, n_knots - 2)
+    lo, hi = _bucket_range(table, n_knots, queries, shift)
     for _ in range(n_iters):
         mid = (lo + hi + 1) >> 1
         go = key_leq(spline_keys[mid], queries)
@@ -257,8 +328,9 @@ def spline_lookup(table, spline_keys, spline_pos, queries, *, shift: int,
         raise ValueError(f"no spline lookup kernel for {queries.device}")
     if not 0 <= shift <= 63:
         raise ValueError(f"radix shift {shift} outside [0, 63]")
-    if spline_keys.shape[0] < 2:
-        raise ValueError("the spline lookup needs at least two knots")
+    if spline_keys.shape[0] < 2 or table.shape[0] < 3:
+        raise ValueError("the spline lookup needs at least two knots and "
+                         "one radix bucket")
     _check_inputs(queries.device, table=table, spline_keys=spline_keys,
                   spline_pos=spline_pos, queries=queries)
     n = queries.shape[0]

@@ -26,7 +26,9 @@ from repro.kernels.tile_search import tile_search_pallas
 from repro_torch.core.convert import model_from_numpy
 from repro_torch.kernels import ops, tile_search as tmod
 from repro_torch.kernels.ref import fma_f32
-from repro_torch.kernels.spline_lookup import spline_lookup, spline_lookup_plain
+from repro_torch.kernels.spline_lookup import (
+    spline_lookup, spline_lookup_paths, spline_lookup_plain,
+)
 from repro_torch.kernels.tile_search import (
     Q_BLK, TILE, tile_search, tile_search_plain,
 )
@@ -182,6 +184,85 @@ def test_spline_lookup_roundings_differ_across_the_split():
     differ = got != other
     assert differ.any()
     assert np.abs(got - other).max() <= 4 * np.spacing(np.abs(got).max())
+
+
+def _k5_edge(case):
+    """A K5 edge case: (model arrays as numpy, shift, n_iters, queries,
+    the kernel paths it must reach). Splines over 3000 keys with a knot
+    per key and 16 radix buckets (about 190 knots a bucket) or an error
+    bound of 2 and 512 buckets (up to 10 knots a bucket), both modes, plus
+    an ``n_iters`` too small to converge, a table whose last entries equal
+    the knot count (lo > hi after the clamp), the knots of one bucket in
+    reverse (the knots <= q no longer come first), and the int32 wrap of
+    ``q >> shift`` below shift 32. Every query set has hits, misses, keys
+    below the first and above the last knot, 0 and int64 max."""
+    fb = case.endswith("fb")
+    wide = case.startswith(("wide", "iters1", "lo>hi"))
+    hi = DOMAINS["fb" if fb else "wrap" if case == "wrap" else "wikits"]
+    keys = make_keys(3000, 17, hi=hi)
+    keys = keys[keys > 5]
+    radix_bits = 4 if wide else 14 if case == "wrap" else 9
+    model, static = jax_build_rs(keys, np.arange(len(keys)) * 3,
+                                 radix_bits=radix_bits,
+                                 max_error=1 if wide else 2)
+    table, sk, sp = (np.array(a) for a in model[:3])
+    shift, n_iters = int(model.shift), static.n_search_iters
+    paths = {1} if wide else {0}
+    if case.startswith("iters1"):
+        n_iters, paths = 1, {2}
+    elif case.startswith("lo>hi"):
+        table[-3:] = len(sk)
+        paths = {2}
+    # the widest bucket's knots
+    bb = int(np.argmax(np.diff(table.astype(np.int64))))
+    a, b = int(table[bb]), int(table[bb + 1])
+    if case.startswith("unsorted"):
+        sk[a:b] = sk[a:b][::-1].copy()
+        paths = {2}
+    r = np.random.default_rng(len(case))
+    q = [r.choice(keys, 500), r.integers(0, hi, 500),
+         hi + r.integers(0, 1 << 40, 100), sk[max(a - 1, 0):b + 1],
+         [0, 1, keys[0] - 1, keys[0], keys[-1], keys[-1] + 1, I64_MAX]]
+    if shift < 32:
+        q.append(r.integers(1 << (shift + 31), 1 << (shift + 33), 64))
+    return (table, sk, sp), shift, n_iters, np.concatenate(q).astype(
+        np.int64), paths
+
+
+K5_EDGES = ["narrow wikits", "narrow fb", "wide wikits", "wide fb",
+            "iters1 wikits", "iters1 fb", "lo>hi wikits", "lo>hi fb",
+            "unsorted wikits", "unsorted fb", "wrap"]
+
+
+@pytest.mark.parametrize("case", K5_EDGES)
+def test_spline_lookup_plain_at_the_edges(case):
+    """K5's plain version against the Pallas body (shift >= 32) or the
+    reference's plain path (shift < 32), bit for bit, on the edge cases of
+    the kernel's two paths; ``spline_lookup_paths`` says the case reaches
+    the path it is there for."""
+    (table, sk, sp), shift, n_iters, q, paths = _k5_edge(case)
+    assert (shift >= 32) == case.endswith("fb")
+    if case == "wrap":
+        assert ((q >> shift) >= 1 << 31).any()
+    t = torch.as_tensor
+    got = spline_lookup_plain(t(table), t(sk), t(sp), t(q), shift=shift,
+                              n_iters=n_iters).numpy()
+    sk_hi, sk_lo = jops.split_key(jnp.asarray(sk))
+    qh, n = jops._pad_to(jops.split_key(jnp.asarray(q))[0], SPL_Q_BLK, 0)
+    ql, _ = jops._pad_to(jops.split_key(jnp.asarray(q))[1], SPL_Q_BLK, 0)
+    sp32 = jnp.asarray(sp.astype(np.float32))
+    if shift >= 32:
+        want = spline_lookup_pallas(jnp.asarray(table), sk_hi, sk_lo, sp32,
+                                    qh, ql, shift=shift, n_iters=n_iters,
+                                    interpret=True)
+    else:
+        want = jref.spline_lookup_ref(jnp.asarray(table), sk_hi, sk_lo, sp32,
+                                      qh, ql, shift, n_iters)
+    _same_bits(got, np.asarray(want)[:n])
+    path, rounds = spline_lookup_paths(t(table), t(sk), t(q), shift=shift,
+                                       n_iters=n_iters)
+    assert paths <= set(path.tolist()), case
+    assert int(rounds.max()) <= -(-max(n_iters, 0) // 5)
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +529,24 @@ def test_spline_lookup_cuda_matches_plain(cuda, domain):
                                **kw)
     torch.cuda.synchronize()
     _same_bits(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K5_EDGES)
+def test_spline_lookup_cuda_at_the_edges(cuda, case):
+    """K5's kernel against its plain version, bit for bit, on every edge
+    case of its one-round and bisect paths, also with ``n_iters`` 0 and
+    ``n_iters`` far above what the ranges need."""
+    (table, sk, sp), shift, n_iters, q, _ = _k5_edge(case)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    args = (t(table), t(sk), t(sp), t(q))
+    for it in (n_iters, 0, 2 * n_iters + 7):
+        before = spline_lookup.launches
+        got = spline_lookup(*args, shift=shift, n_iters=it)
+        torch.cuda.synchronize()
+        assert spline_lookup.launches == before + 1
+        want = spline_lookup_plain(*args, shift=shift, n_iters=it)
+        _same_bits(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.gpu

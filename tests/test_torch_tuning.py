@@ -103,14 +103,18 @@ def test_forecaster_numpy_path_matches_jax_exactly():
     )
 
 
-def test_forecaster_kernel_path_matches_jax_pallas():
+@pytest.mark.parametrize("n_components", [4, 16, 33])
+def test_forecaster_kernel_path_matches_jax_pallas(n_components):
     """The port's kernel path (K3's plain version on the CPU) against the
     JAX forecaster's Pallas E-step in interpret mode, on the same mixture
-    and samples, within the float32 tolerance of ``tests/test_kernels.py``."""
+    and samples, within the float32 tolerance of ``tests/test_kernels.py``;
+    K 16 and 33 are where the CUDA kernel takes a 16-lane group and a warp
+    per sample."""
     lo, hi = 0.0, float(1 << 40)
-    jf = JaxForecaster(lo, hi, JaxForecastConfig(use_pallas=True, seed=1))
-    tf = UpdateForecaster(lo, hi, ForecastConfig(use_kernel=True, seed=1),
-                          device="cpu")
+    jf = JaxForecaster(lo, hi, JaxForecastConfig(
+        n_components=n_components, use_pallas=True, seed=1))
+    tf = UpdateForecaster(lo, hi, ForecastConfig(
+        n_components=n_components, use_kernel=True, seed=1), device="cpu")
     r = np.random.default_rng(5)
     for step in range(3):
         x = r.integers(0, 1 << 40, 700).astype(np.float64)
@@ -123,8 +127,47 @@ def test_forecaster_kernel_path_matches_jax_pallas():
         batch = r.normal(0.3 * (1 << 40), 1 << 35, 600).astype(np.int64)
         jf.observe(batch)
         tf.observe(batch)
+        # a component holding under a millionth of a sample has no mean:
+        # its M-step divides float32-underflowed sums by the EM floor (none
+        # at K = 4; 4 of 16 and 17 of 33 here), so the mixtures are held to
+        # each other on the components that hold samples
+        live = jf._s0 >= 1e-6
+        np.testing.assert_array_equal(tf._s0 >= 1e-6, live)
+        assert live.sum() >= 4
         for a, b in zip(jf.gmm, tf.gmm):
-            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4)
+            np.testing.assert_allclose(b.numpy()[live], np.asarray(a)[live],
+                                       rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_forecaster_on_cuda_with_16_components():
+    """A forecaster on the card (K3 by default there) with 16 components,
+    where the kernel gives a sample a 16-lane group, against the same
+    forecaster on the CPU (K3's plain version): responsibilities within
+    1e-5, the mixtures within 1e-4 on the components that hold samples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lo, hi = 0.0, float(1 << 40)
+    gpu = UpdateForecaster(lo, hi, ForecastConfig(n_components=16, seed=1),
+                           device="cuda")
+    cpu = UpdateForecaster(lo, hi, ForecastConfig(
+        n_components=16, use_kernel=True, seed=1), device="cpu")
+    assert gpu.cfg.use_kernel
+    r = np.random.default_rng(5)
+    before = k3.gmm_estep.launches
+    for _ in range(3):
+        x = r.integers(0, 1 << 40, 700).astype(np.float64)
+        np.testing.assert_allclose(gpu._responsibilities(x),
+                                   cpu._responsibilities(x), atol=1e-5)
+        batch = r.normal(0.3 * (1 << 40), 1 << 35, 600).astype(np.int64)
+        gpu.observe(batch)
+        cpu.observe(batch)
+        live = cpu._s0 >= 1e-6
+        np.testing.assert_array_equal(gpu._s0 >= 1e-6, live)
+        for a, b in zip(cpu.gmm, gpu.gmm):
+            np.testing.assert_allclose(b.numpy()[live], a.numpy()[live],
+                                       rtol=1e-4)
+    assert k3.gmm_estep.launches == before + 6
 
 
 def test_k3_failure_raises_from_observe(monkeypatch):
