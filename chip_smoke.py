@@ -102,6 +102,60 @@ Imports only the port (``src/repro_torch``) and runs:
                 JSON line; the BMAT's cap, nf and fanout beside K2's time, the
                 device time of one trivial launch (the launch floor), and the
                 tiled rank route against K2 on the same 10.5M-key buffer.
+ 13. gateway  — the 4M loaded keys in ``ShardedUpLIF(n_shards=4)`` (values
+                2k+1) with ``SelfTuner.overlapped(max_concurrent_builds=2,
+                commit_replay_cap=4096)`` under ``RequestGateway(max_batch
+                1024, max_delay_s 0.002)``: ``warmup()``, then 64 closed-loop
+                client threads for 20 s, as ``examples/serve_gateway.py``
+                drives it: 70% lookups, 14% upserts rewriting one of the
+                client's own loaded keys (every 7th of the rest, split among
+                the clients) with a value it has not held, 14% inserts of
+                fresh keys from the unloaded half (each owned by one
+                client), 2% deletes of a reserved set (every 97th loaded
+                key, split among the clients, touched by no other op); a
+                client also looks up the keys it wrote. Every lookup must
+                find the last acknowledged value (2k+1 where none was
+                written) and every delete's hit say whether the key was
+                live; after ``close()`` and the tuner's drain the contents
+                must equal the loaded plus acknowledged fresh less
+                acknowledged deleted keys, each at its last acknowledged
+                value; K1, K2 and K3 must launch; every
+                flush must land on a primed pad width; the kernel library
+                must not be built or loaded after warmup; no build may fail.
+                Prints requests/s, p50/p99/p99.9 latency, waves, mean batch,
+                flush triggers, pad widths, rejections and the tuner's
+                builds submitted, committed, abandoned, conflicted, drained;
+ 14. async maintenance — ``tests/test_async_maintenance.py``'s paced-commit
+                stress at full size on a fresh 4-shard router of the same
+                keys: 4 reader threads look up a 512-key probe and the last
+                acknowledged insert batch while the main thread inserts 8
+                waves of 4096 new keys and the executor's two workers build
+                on disjoint intervals (a shard-0 retrain with a fixed GMM
+                beside a shard-2 split, then a merge of the split's
+                halves), committed under ``replay_cap=1024`` so commits
+                drain across waves. No torn read, every acknowledged insert
+                readable, at least one drain, and the contents, boundaries
+                and every stacked array identical to a twin router that ran
+                the same tape with the builds inline. Prints build seconds
+                per action, commit seconds, drains, and insert-wave p50/p99
+                with a build in flight, while draining, and with neither;
+ 15. agent, baselines, pipeline — on the single index, the agent's
+                A_RETRAIN above a 4096-key BMAT (a full retrain), again at a
+                small BMAT (the overflow of a burst of 512 adjacent fresh
+                keys; the subset retrain must absorb keys) and A_SWITCH,
+                each followed by a checked read wave, the burst, subset
+                retrain and switch also on a CPU twin whose arrays must
+                equal the card's; then ``WorkloadRunner.run(agent=)`` for
+                3 s with an agent that retrains in every state, which must
+                apply at least one retrain; each baseline over 1M loaded keys answers a 4096-lookup
+                batch and an insert wave on the card as on the CPU (results,
+                overflow counts, arrays), K1 and K2 launching for all but
+                ``BTreeLike``; ``PackedCorpus`` of 65536 documents gives the
+                same batches, doc tokens and retirement on the card as on
+                the CPU.
+
+Phases 13-15 come after the timing because phase 15 retrains the index
+that phase 12 times.
 
 Each path's launch counts are reset just before it and read just after;
 the kernels line gives them per path (``launches_by_path``) and summed.
@@ -127,6 +181,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -138,6 +193,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 128 << 20  # read or written between cold launches
 F32_OPS_PER_S = 67e12
+PROFILE_TRIES = 3           # profiler sessions before CUDA events are used
 BATCH = 4096
 N_KEYS = 8_000_000          # wikits keys generated; half are bulk-loaded
 WAVES = 200                 # 4096-op waves per read/write mix
@@ -168,6 +224,17 @@ K3_TOL = 1e-5        # the tolerance of tests/test_kernels.py
 K3_MAX_K = 64        # K3 is compared for K 1 .. K3_MAX_K
 WIDE_FANOUTS = (128, 256)   # K2 above its one-ballot node round of 64 keys
 FORECAST_K = 16      # components of the forecaster phase (16-lane groups)
+GATEWAY_CLIENTS = 64        # closed-loop client threads (serve_gateway.py)
+GATEWAY_SECONDS = 20.0
+GATEWAY_MAX_BATCH = 1024
+GATEWAY_RESERVE_EVERY = 97  # every 97th loaded key is reserved for deletes
+GATEWAY_REWRITE_EVERY = 7   # every 7th of the rest is one client's to rewrite
+ASYNC_WAVES = 8             # 4096-key insert waves of the async phase
+ASYNC_REPLAY_CAP = 1024
+AGENT_RUN_S = 3.0
+AGENT_BURST = 512           # adjacent fresh keys in one insert wave
+BASELINE_EVERY = 4          # baselines over every 4th loaded key (1M keys)
+PIPELINE_DOCS = 65536
 
 
 class SmokeFailure(RuntimeError):
@@ -473,16 +540,21 @@ def router_maintenance(torch, router, tuner, runner, inserted):
     return report
 
 
+def _router_contents(router):
+    """The router's live (keys, vals), sorted, from every shard's shell."""
+    parts = [router._unstack_shell(s).extract_live()
+             for s in range(router.n_shards)]
+    return (np.concatenate([k for k, _ in parts]),
+            np.concatenate([v for _, v in parts]))
+
+
 def check_router_contents(router, runner, inserted, deleted=None):
     """The router's live contents equal the loaded plus inserted keys (less
     ``deleted``), each with value key + 1. Returns them, sorted."""
     want = np.unique(np.concatenate([runner.init_keys] + inserted))
     if deleted is not None:
         want = np.setdiff1d(want, deleted)
-    parts = [router._unstack_shell(s).extract_live()
-             for s in range(router.n_shards)]
-    keys = np.concatenate([k for k, _ in parts])
-    vals = np.concatenate([v for _, v in parts])
+    keys, vals = _router_contents(router)
     require(np.array_equal(keys, want),
             f"router contents: {len(keys)} live keys, expected {len(want)}")
     require(np.array_equal(vals, keys + 1), "router contents: wrong values")
@@ -644,23 +716,44 @@ def _per_call_ms(events, iters: int, skip=()) -> float:
                for v in by_name.values()) / 1e3
 
 
-def device_ms(torch, fn, iters: int) -> float:
-    """Device time per call: the profiler's device events (the kernels and
-    copies the call ran) over ``iters`` calls, per call (``_per_call_ms``).
-    Host dispatch between launches is not counted."""
+def _device_events(torch, body):
+    """The profiler's device events of one ``body()``. The profiler on the
+    H100 machine records no device event at all in some sessions, so a
+    session that saw none is run again, up to ``PROFILE_TRIES`` times in
+    all; None if every one saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return dev
+    return None
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: the profiler's device events (the kernels and
+    copies the call ran) over ``iters`` calls, per call (``_per_call_ms``).
+    Host dispatch between launches is not counted. Where the profiler sees
+    no device event, the time between CUDA events (``call_ms``) instead,
+    which also counts the dispatch it cannot hide; a line says so."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+
+    def body():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    require(dev, "the profiler saw no device time")
+
+    dev = _device_events(torch, body)
+    if dev is None:
+        print("device_ms: the profiler saw no device event; timed between "
+              "CUDA events", flush=True)
+        return call_ms(torch, fn, iters)
     return _per_call_ms(dev, iters)
 
 
@@ -670,10 +763,9 @@ def cold_ms(torch, fn, iters: int, flush: str = "read") -> float:
     H100's 50 MB L2): a ``"read"`` (a sum, which leaves clean lines of its
     own in the L2) or a ``"write"`` (a fill, which leaves dirty lines that
     the timed call writes back as it evicts them). The flush's device events
-    are known by name and left out."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    are known by name and left out. Where the profiler sees no device
+    event, the mean time between CUDA events recorded around each call
+    after its flush instead; a line says so."""
     buf = torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
     step, marks = {
         "read": (lambda i: buf.sum(), ("sum_functor", "Memset")),
@@ -682,13 +774,27 @@ def cold_ms(torch, fn, iters: int, flush: str = "read") -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def body():
         for i in range(iters):
             step(i)
             fn()
+
+    dev = _device_events(torch, body)
+    if dev is None:
+        print("cold_ms: the profiler saw no device event; timed between "
+              "CUDA events", flush=True)
+        pairs = []
+        for i in range(iters):
+            step(i)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            pairs.append((t0, t1))
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return float(np.mean([t0.elapsed_time(t1) for t0, t1 in pairs]))
     n_flush = sum(marks[0] in e.name for e in dev)
     n_call = sum(not any(m in e.name for m in marks) for e in dev)
     require(n_flush >= iters // 2 and n_call >= iters // 2,
@@ -1626,6 +1732,668 @@ def router_card_vs_cpu(torch):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the request gateway over the overlapped tuner
+# ---------------------------------------------------------------------------
+
+
+def _pcts_ms(lat) -> dict:
+    lat_ms = np.asarray(lat) * 1e3
+    if not len(lat_ms):
+        return {"p50_ms": None, "p99_ms": None, "p999_ms": None}
+    return {"p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "p999_ms": float(np.percentile(lat_ms, 99.9)),
+            "max_ms": float(lat_ms.max())}
+
+
+def _gateway_client(gw, tid, plain, own, reserved, fresh, stop, out):
+    """One closed-loop client (``examples/serve_gateway.py``): 70% lookups
+    (of loaded keys no one writes, and now and then of a key this client
+    wrote), 14% upserts rewriting one of its ``own`` loaded keys with a
+    value the key has not held (2k + 2 + 2n for its n-th rewrite), 14%
+    inserts of its own fresh keys, 2% deletes of its own reserved keys.
+    Every answer is checked: a lookup finds the last value acknowledged for
+    the key (2k+1 where no rewrite was), a delete's hit says whether the
+    key was still live."""
+    from repro_torch.serve import RetryAfter
+
+    rng = np.random.default_rng(1000 + tid)
+    lat, svc, errors, acked, deleted = [], [], [], [], set()
+    written = {}  # key -> last acknowledged value, for this client's writes
+    n_fresh = n_rewrites = n_rejected = 0
+    while not stop.is_set():
+        p = rng.random()
+        val = None
+        if p < 0.70:
+            if written and rng.random() < 0.25:
+                k = list(written)[int(rng.integers(len(written)))]
+            else:
+                k = int(plain[rng.integers(len(plain))])
+            kind = "lookup"
+        elif p < 0.84 or n_fresh >= len(fresh):
+            kind, k = "rewrite", int(own[rng.integers(len(own))])
+            val = 2 * k + 2 + 2 * n_rewrites
+            n_rewrites += 1
+        elif p < 0.98:
+            kind, k = "fresh", int(fresh[n_fresh])
+            val = 2 * k + 1
+            n_fresh += 1
+        else:
+            kind, k = "delete", int(reserved[rng.integers(len(reserved))])
+        try:
+            if kind == "lookup":
+                fut = gw.submit_lookup(k)
+            elif kind == "delete":
+                fut = gw.submit_delete(k)
+            else:
+                fut = gw.submit_insert(k, val)
+        except RetryAfter as e:
+            n_rejected += 1
+            if kind == "fresh":
+                n_fresh -= 1
+            time.sleep(e.retry_after_s)
+            continue
+        try:
+            res = fut.result(30.0)
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            errors.append(f"{kind} {k}: {e!r}")
+            break
+        lat.append(fut.total_latency_s)
+        svc.append(fut.service_latency_s)
+        if kind == "lookup" and res != (True, written.get(k, 2 * k + 1)):
+            errors.append(f"lookup {k}: {res}, expected "
+                          f"{written.get(k, 2 * k + 1)}")
+        elif kind == "delete" and res != (k not in deleted):
+            errors.append(f"delete {k}: hit {res}, deleted before "
+                          f"{k in deleted}")
+        elif kind in ("rewrite", "fresh") and res is not True:
+            errors.append(f"{kind} {k}: {res}")
+        if kind in ("rewrite", "fresh"):
+            written[k] = val
+        if kind == "fresh":
+            acked.append(k)
+        elif kind == "delete":
+            deleted.add(k)
+        if len(errors) >= 8:
+            break
+        time.sleep(rng.exponential(0.0005))
+    out[tid] = {"lat": lat, "svc": svc, "errors": errors, "acked": acked,
+                "written": written, "deleted": sorted(deleted),
+                "rejected": n_rejected}
+
+
+def run_gateway_path(torch, loaded, unloaded):
+    """``RequestGateway`` over a 4-shard router of the loaded keys (values
+    2k+1) with ``SelfTuner.overlapped(max_concurrent_builds=2,
+    commit_replay_cap=4096)``: warmup, then 64 closed-loop client threads
+    for ``GATEWAY_SECONDS``. Returns the report and the launch counts of
+    the served run (reset just before the clients start, read after the
+    close and the tuner's drain)."""
+    from repro_torch.core import ShardedUpLIF
+    from repro_torch.kernels import build, ops
+    from repro_torch.serve import GatewayConfig, RequestGateway
+    from repro_torch.tuning import SelfTuner
+
+    t0 = time.perf_counter()
+    router = ShardedUpLIF(loaded, 2 * loaded + 1, n_shards=N_SHARDS)
+    tuner = SelfTuner.overlapped(max_concurrent_builds=2,
+                                 commit_replay_cap=4096).attach(router)
+    require(tuner.forecaster.cfg.use_kernel, "gateway: forecaster not on K3")
+    cfg = GatewayConfig(max_batch=GATEWAY_MAX_BATCH, max_delay_s=0.002)
+    gw = RequestGateway(router, tuner=tuner, config=cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        primed = gw.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        info0 = build.library.cache_info()
+
+        # every 97th loaded key is reserved for deletes, every 7th of the
+        # rest for rewrites (each owned by one client), the rest is read
+        # by everyone and never written
+        is_res = np.zeros(len(loaded), dtype=bool)
+        is_res[::GATEWAY_RESERVE_EVERY] = True
+        rest, reserved = loaded[~is_res], loaded[is_res]
+        is_own = np.zeros(len(rest), dtype=bool)
+        is_own[::GATEWAY_REWRITE_EVERY] = True
+        plain, owned = rest[~is_own], rest[is_own]
+        stop = threading.Event()
+        out = {}
+        threads = [
+            threading.Thread(
+                target=_gateway_client, daemon=True,
+                args=(gw, i, plain, owned[i::GATEWAY_CLIENTS],
+                      reserved[i::GATEWAY_CLIENTS],
+                      unloaded[i::GATEWAY_CLIENTS], stop, out))
+            for i in range(GATEWAY_CLIENTS)
+        ]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(GATEWAY_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(60.0)
+        served_s = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads),
+                "gateway: a client did not finish")
+        gst = gw.stats()
+        gw.close()
+        t1 = time.perf_counter()
+        tuner.drain(timeout=120.0)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        info1 = build.library.cache_info()
+    finally:
+        gw.close()
+    tst = tuner.stats()
+    tuner.close()
+
+    errors = [e for r in out.values() for e in r["errors"]]
+    require(len(out) == GATEWAY_CLIENTS, "gateway: a client reported nothing")
+    require(not errors, f"gateway: wrong answers: {errors[:4]}")
+    require(gw.last_error is None, f"gateway: a wave failed: {gw.last_error}")
+    for name in ("fused_locate", "bmat_rank", "gmm_estep"):
+        require(counts[name] > 0,
+                f"gateway: {name} was not launched: {counts}")
+    require(info1.misses == info0.misses,
+            f"gateway: the kernel library was built or loaded after warmup "
+            f"({info0} -> {info1})")
+    require(tst["last_build_error"] is None,
+            f"gateway: a build failed: {tst['last_build_error']}")
+    require(not router.draining and not router._logs,
+            "gateway: a build is still open after the drain")
+    acked = np.concatenate([np.asarray(r["acked"], dtype=np.int64)
+                            for r in out.values()])
+    dead = np.concatenate([np.asarray(r["deleted"], dtype=np.int64)
+                           for r in out.values()])
+    want = np.union1d(np.setdiff1d(loaded, dead), acked)
+    keys, vals = _router_contents(router)
+    require(np.array_equal(keys, want),
+            f"gateway contents: {len(keys)} live keys, expected {len(want)}")
+    want_vals = 2 * keys + 1
+    wk = np.array([k for r in out.values() for k in r["written"]],
+                  dtype=np.int64)
+    wv = np.array([v for r in out.values() for v in r["written"].values()],
+                  dtype=np.int64)
+    want_vals[np.searchsorted(keys, wk)] = wv
+    require(np.array_equal(vals, want_vals),
+            "gateway contents: a value is not the last acknowledged one")
+    require(router.size == len(want), "gateway: size differs from contents")
+    for op, hist in gst["pad_widths"].items():
+        for w in hist:
+            require(w in primed[op], f"gateway: {op} flushed at an unprimed "
+                                     f"width {w} (primed {primed[op]})")
+
+    lat = [x for r in out.values() for x in r["lat"]]
+    rep = {
+        "path": "gateway", "clients": GATEWAY_CLIENTS,
+        "keys": len(loaded), "shards": N_SHARDS,
+        "max_batch": GATEWAY_MAX_BATCH, "max_delay_s": 0.002,
+        "load_s": load_s, "warmup_s": warm_s, "primed": primed,
+        "served_s": served_s, "requests": len(lat),
+        "requests_per_s": len(lat) / served_s,
+        **_pcts_ms(lat),
+        # dispatch -> done: the wave that served the request
+        "service": _pcts_ms([x for r in out.values() for x in r["svc"]]),
+        "waves": gst["waves"], "mean_batch": gst["ops"] / max(gst["waves"], 1),
+        "flush_triggers": gst["flush_triggers"],
+        "pad_widths": gst["pad_widths"],
+        "rejected": sum(r["rejected"] for r in out.values()),
+        "gateway_rejected": gst["rejected"],
+        "fresh_acked": len(acked), "deleted": len(dead),
+        "rewritten": len(wk) - len(acked),
+        "drain_s": drain_s,
+        "tuner": {
+            "submitted": tst["plans"], "committed": tst["commits"],
+            "abandoned": tst["abandoned"], "conflicted": tst["conflicts"],
+            "drained": tst["drained"], "replayed_ops": tst["replayed_ops"],
+            "actions": tst["actions"], "shed_waves": tst["shed_waves"],
+            "time_in_maintenance_s": tst["time_in_maintenance_s"],
+            "n_shards": tst["n_shards"],
+        },
+        "launches": counts,
+        "contents": f"{len(keys)} live keys == loaded + acked fresh - "
+                    "acked deletes, each at its last acknowledged value",
+    }
+    print("gateway " + json.dumps(rep), flush=True)
+    return rep, counts
+
+
+# ---------------------------------------------------------------------------
+# asynchronous maintenance at full size
+# ---------------------------------------------------------------------------
+
+
+def _async_reader(router, probe, acked, stop, failures, n_reads):
+    while not stop.is_set():
+        try:
+            f, v = router.lookup(probe)
+            if not (f.all() and np.array_equal(v, 2 * probe + 1)):
+                failures.append("probe mismatch (torn read)")
+                return
+            if acked:
+                ak = acked[-1]
+                f, v = router.lookup(ak)
+                if not (f.all() and np.array_equal(v, 2 * ak + 1)):
+                    failures.append("acked insert vanished")
+                    return
+            n_reads[0] += 1
+        except Exception as e:  # noqa: BLE001 — any tear is a failure
+            failures.append(repr(e))
+            return
+
+
+def run_async_path(torch, loaded, unloaded):
+    """``tests/test_async_maintenance.py``'s paced-commit stress at full
+    size: readers look up a probe and the last acknowledged insert batch
+    while the main thread inserts ``ASYNC_WAVES`` waves of 4096 new keys
+    and builds on disjoint intervals run on the executor's two workers —
+    a shard-0 retrain with a fixed GMM beside a shard-2 split, then a
+    merge of the split's halves — committing under ``ASYNC_REPLAY_CAP``
+    and draining across waves. A twin router runs the same tape with the
+    builds inline; contents and every stacked array must be identical."""
+    from repro_torch.core import ShardedUpLIF
+    from repro_torch.core.types import GMMState
+    from repro_torch.kernels import ops
+    from repro_torch.tuning import (
+        A_MERGE_SHARDS, A_RETRAIN_SHARD, A_SPLIT_SHARD, MaintenanceExecutor,
+        MaintenancePlan, build,
+    )
+
+    lo, hi = float(loaded[0]), float(loaded[-1])
+    gmm = GMMState(
+        weights=torch.tensor([0.7, 0.3], dtype=torch.float64),
+        means=torch.tensor([lo + 0.1 * (hi - lo), lo + 0.6 * (hi - lo)],
+                           dtype=torch.float64),
+        stds=torch.tensor([0.05 * (hi - lo), 0.2 * (hi - lo)],
+                          dtype=torch.float64),
+    )
+    # two rounds of builds; merge of the split's halves in the second
+    rounds = [[(A_RETRAIN_SHARD, 0, gmm), (A_SPLIT_SHARD, 2, None)],
+              [(A_MERGE_SHARDS, 2, None)]]
+    tape = [unloaded[w * BATCH:(w + 1) * BATCH] for w in range(ASYNC_WAVES)]
+    per_round = ASYNC_WAVES // len(rounds)
+
+    def plan(pid, action, shard, g):
+        return MaintenancePlan(plan_id=pid, epoch=-1, wave=0, action=action,
+                               shard=shard, gmm=g, cost_estimate=0.0)
+
+    def drive(router, executor, on_wave=None):
+        """The tape; ``executor`` None runs the builds inline (the twin).
+        Returns the per-build and per-wave records."""
+        acked = []
+        rec = {"builds": [], "commits": [], "waves": [], "parked": 0,
+               "drains": 0}
+        pid = 0
+        for r, plans in enumerate(rounds):
+            pending = []
+            for action, shard, g in plans:
+                pid += 1
+                shards = (shard, shard + 1) if action == A_MERGE_SHARDS \
+                    else (shard,)
+                p, snap = plan(pid, action, shard, g), router.snapshot(shards)
+                if executor is None:
+                    pending.append((p, build(p, snap)))
+                else:
+                    executor.submit(p, snap)
+            for w in range(per_round):
+                new = tape[r * per_round + w]
+                in_flight = (executor is not None and executor.inflight > 0)
+                draining = router.draining
+                t0 = time.perf_counter()
+                router.insert(new, 2 * new + 1)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                acked.append(new)
+                if on_wave is not None:
+                    on_wave(new)
+                rec["waves"].append({"s": dt, "build_in_flight": in_flight,
+                                     "draining": draining})
+                if w == 1:
+                    if executor is not None:
+                        res = executor.wait(timeout=300.0)
+                        require(len(res) == len(plans) and all(
+                            x.error is None and x.delta is not None
+                            for x in res),
+                            f"async: a build failed: {res}")
+                        rec["builds"] += [(x.plan.action, x.build_seconds)
+                                          for x in res]
+                        pending = sorted(((x.plan, x.delta) for x in res),
+                                         key=lambda pd: pd[0].plan_id)
+                    for p, delta in pending:
+                        c0 = time.perf_counter()
+                        require(router.commit(delta,
+                                              replay_cap=ASYNC_REPLAY_CAP),
+                                "async: a commit was refused")
+                        torch.cuda.synchronize()
+                        rec["commits"].append(time.perf_counter() - c0)
+                        rec["parked"] += delta.build_id in \
+                            router.draining_builds()
+                elif w > 1:
+                    rec["drains"] += router.advance_drains(ASYNC_REPLAY_CAP)
+            while router.draining:
+                done = router.advance_drains(None)
+                require(done > 0, "async: a drain was aborted")
+                rec["drains"] += done
+        return acked, rec
+
+    router = ShardedUpLIF(loaded, 2 * loaded + 1, n_shards=N_SHARDS)
+    twin = ShardedUpLIF(loaded, 2 * loaded + 1, n_shards=N_SHARDS)
+    probe = loaded[:: len(loaded) // 512][:512]
+    stop = threading.Event()
+    failures, acked_view, n_reads = [], [], [0]
+    readers = [threading.Thread(target=_async_reader, daemon=True,
+                                args=(router, probe, acked_view, stop,
+                                      failures, n_reads))
+               for _ in range(4)]
+    executor = MaintenanceExecutor(n_workers=2)
+    ops.reset_launch_counts()
+    for t in readers:
+        t.start()
+    try:
+        acked, rec = drive(router, executor, on_wave=acked_view.append)
+    finally:
+        stop.set()
+        for t in readers:
+            t.join(60.0)
+        executor.close()
+    counts = ops.launch_counts()
+    require(not any(t.is_alive() for t in readers), "async: a reader hung")
+    require(not failures, f"async: {failures[:3]}")
+    require(n_reads[0] > 0, "async: the readers read nothing")
+    require(rec["parked"] >= 1 and rec["drains"] >= 1,
+            f"async: no commit drained across waves ({rec['parked']} parked)")
+    require(router.n_commits == 3 and router.n_discards == 0,
+            f"async: {router.n_commits} commits, {router.n_discards} discards")
+    _, twin_rec = drive(twin, None)
+    new = np.concatenate(acked)
+    f, v = router.lookup(new)
+    require(f.all() and np.array_equal(v, 2 * new + 1),
+            "async: an acknowledged insert is not readable")
+    require(np.array_equal(router.boundaries, twin.boundaries),
+            "async: boundaries differ from the sync twin's")
+    for part, tpart in zip(router.state, twin.state):
+        for x, y in zip(part, tpart):
+            require(x.dtype == y.dtype and torch.equal(x, y),
+                    "async: a stacked array differs from the sync twin's")
+    keys, vals = _router_contents(router)
+    require(np.array_equal(keys, np.union1d(loaded, new))
+            and np.array_equal(vals, 2 * keys + 1),
+            "async: contents differ from loaded + inserted")
+
+    def ms(sel):
+        xs = [w["s"] * 1e3 for w in rec["waves"] if sel(w)]
+        return ({"waves": len(xs), "p50": float(np.percentile(xs, 50)),
+                 "p99": float(np.percentile(xs, 99))} if xs else None)
+
+    names = {A_RETRAIN_SHARD: "retrain_shard", A_SPLIT_SHARD: "split_shard",
+             A_MERGE_SHARDS: "merge_shards"}
+    rep = {
+        "path": "async_maintenance", "keys": len(loaded),
+        "insert_waves": len(rec["waves"]), "wave_keys": BATCH,
+        "replay_cap": ASYNC_REPLAY_CAP,
+        "build_s": [(names[a], s) for a, s in rec["builds"]],
+        "commit_s": rec["commits"], "parked_commits": rec["parked"],
+        "drains": rec["drains"], "replayed_ops": router.n_replayed_ops,
+        "insert_wave_ms_build_in_flight": ms(lambda w: w["build_in_flight"]),
+        "insert_wave_ms_draining": ms(
+            lambda w: w["draining"] and not w["build_in_flight"]),
+        "insert_wave_ms_none": ms(
+            lambda w: not w["build_in_flight"] and not w["draining"]),
+        "reader_rounds": n_reads[0], "n_shards": router.n_shards,
+        "twin_commit_s": twin_rec["commits"],
+        "launches": counts,
+        "twin": "contents, boundaries and every stacked array identical",
+    }
+    print("async " + json.dumps(rep), flush=True)
+    return rep, counts
+
+
+# ---------------------------------------------------------------------------
+# the RL agent, the baselines and the data pipeline
+# ---------------------------------------------------------------------------
+
+
+def _checked_reads(index, live, rng, label):
+    q = rng.choice(live, BATCH)
+    f, v = index.lookup(q)
+    require(f.all() and np.array_equal(v, q + 1), f"{label}: reads wrong")
+
+
+def _burst(live, pool, n=AGENT_BURST):
+    """``n`` keys of ``pool`` that are not live and lie next to each other in
+    key order, from the middle of the pool: one insert wave of them puts
+    more keys in each slot window than its rounds accept, so the overflow
+    reaches the BMAT while the windows still have gaps."""
+    fresh = np.setdiff1d(pool, live)
+    mid = len(fresh) // 2
+    return fresh[mid:mid + n]
+
+
+def _cpu_twin(torch, index):
+    """A CPU copy of ``index`` (arrays, model, BMAT kind) that pins the fused
+    locate the card's index resolves to."""
+    import dataclasses
+
+    from repro_torch.core.convert import uplif_from_numpy
+
+    def leaves(t):
+        return [x.cpu().numpy() for x in t]
+
+    st = index.fstate
+    twin = uplif_from_numpy(
+        leaves(st.slots), leaves(st.model), leaves(st.bmat),
+        leaves(st.counters), rs_static=tuple(index.rs_static),
+        gmm=leaves(index.gmm), alpha=index.alpha,
+        config=dataclasses.replace(index.cfg, locate=index.locate_strategy(),
+                                   bmat_type=index.bmat.tree_type,
+                                   bmat_fanout=index.bmat.fanout),
+        device="cpu")
+    twin.n_retrains = index.n_retrains
+    return twin
+
+
+def run_agent_path(torch, index, runner, live):
+    """``QLearningAgent.apply_action`` on the single index: A_RETRAIN at a
+    BMAT above 4096 keys (a full retrain), again at a small BMAT (a subset
+    retrain of the overflow of a burst of adjacent keys), then A_SWITCH,
+    each followed by a checked read wave; the subset retrain must absorb
+    keys. The burst, the subset retrain and the switch also run on a CPU
+    twin of the index, and the arrays must agree. Then
+    ``WorkloadRunner.run(agent=)`` for ``AGENT_RUN_S`` seconds with an agent
+    whose Q-table prefers A_RETRAIN in every state, so the runner applies
+    the agent's choices on the card."""
+    from repro_torch.core.rl_agent import (
+        A_RETRAIN, A_SWITCH, QLearningAgent, encode_state,
+    )
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(21)
+    agent = QLearningAgent()
+    live = [live]
+    ops.reset_launch_counts()
+    for _ in range(64):  # the full retrain needs a BMAT above 4096 keys
+        if index.bmat.size > 4096:
+            break
+        _, ins = runner.next_batch(1.0)
+        index.insert(ins, ins + 1)
+        live.append(ins)
+    require(index.bmat.size > 4096, "agent: the BMAT stays at 4096 keys")
+    steps = []
+    t0 = time.perf_counter()
+    before = (index.bmat.size, index.n_retrains)
+    agent.apply_action(index, A_RETRAIN)
+    torch.cuda.synchronize()
+    steps.append({"action": "retrain (full)", "s": time.perf_counter() - t0,
+                  "bmat_before": before[0], "bmat_after": index.bmat.size})
+    require(index.bmat.size == 0 and index.n_retrains == before[1] + 1,
+            "agent: A_RETRAIN above 4096 keys was not a full retrain")
+    all_live = np.unique(np.concatenate(live))
+    _checked_reads(index, all_live, rng, "after the full retrain")
+    require(index.bmat.size == 0, "agent: the full retrain left a BMAT")
+    burst = _burst(all_live, runner.insert_keys)
+    twin = _cpu_twin(torch, index)
+    for idx in (index, twin):  # a small BMAT whose windows have room
+        idx.insert(burst, burst + 1)
+    all_live = np.union1d(all_live, burst)
+    require(0 < index.bmat.size <= 4096,
+            f"agent: no small BMAT to absorb ({index.bmat.size} keys)")
+    _checked_reads(index, all_live, rng, "after the burst")
+    bk = index.bmat.extract()[0]
+    t0 = time.perf_counter()
+    before = (len(bk), index.n_retrains)
+    agent.apply_action(index, A_RETRAIN)
+    torch.cuda.synchronize()
+    absorbed = before[0] - len(index.bmat.extract()[0])
+    steps.append({"action": "retrain (subset)", "s": time.perf_counter() - t0,
+                  "bmat_before": before[0], "bmat_after": index.bmat.size,
+                  "burst": len(burst), "absorbed": absorbed})
+    require(index.n_retrains == before[1] + 1 and absorbed > 0,
+            f"agent: A_RETRAIN at a small BMAT of {before[0]} keys absorbed "
+            f"{absorbed}")
+    require(twin.retrain_subset() == absorbed,
+            "agent: the CPU twin absorbed another count")
+    _checked_reads(index, all_live, rng, "after the subset retrain")
+    kind = index.bmat.tree_type
+    t0 = time.perf_counter()
+    agent.apply_action(index, A_SWITCH)
+    steps.append({"action": "switch", "s": time.perf_counter() - t0,
+                  "bmat_type": index.bmat.tree_type})
+    agent.apply_action(twin, A_SWITCH)
+    require(index.bmat.tree_type != kind, "agent: A_SWITCH did not switch")
+    require(twin.bmat.tree_type == index.bmat.tree_type
+            and all(torch.equal(x, y) for x, y in
+                    zip(_index_arrays(index), _index_arrays(twin))),
+            "agent: card and CPU twin arrays differ after the subset retrain")
+    del twin
+    _checked_reads(index, all_live, rng, "after the switch")
+    state = encode_state(index.measures())
+    greedy = QLearningAgent()
+    for s in np.ndindex(6, 5, 5, 5, 2):
+        greedy._q_row(s)[A_RETRAIN] = 1.0
+    r0 = index.n_retrains
+    res = runner.run(index, 0.5, seconds=AGENT_RUN_S, agent=greedy)
+    _checked_reads(index, all_live, rng, "after run(agent=)")
+    require(index.n_retrains > r0, "agent: run(agent=) applied no action")
+    counts = ops.launch_counts()
+    for name in UPLIF_KERNELS:
+        require(counts[name] > 0, f"agent: {name} was not launched")
+    rep = {"path": "agent", "steps": steps, "state": list(state),
+           "run_ops": res.ops, "run_mops_per_s": res.mops,
+           "run_retrains": index.n_retrains - r0, "launches": counts,
+           "twin": "subset retrain and switch: card == CPU arrays"}
+    print("agent " + json.dumps(rep), flush=True)
+    return rep, counts
+
+
+def _index_arrays(idx):
+    b = idx.bmat.state
+    return [x.cpu() for x in (*idx.slots, b.keys, b.vals, b.fences, b.size)]
+
+
+def run_baselines(torch, keys, fresh):
+    """Each baseline over ``keys`` on the card and on the CPU: a 4096-lookup
+    batch (loaded keys and misses) and a 4096-key insert wave, then the
+    batch again; results, overflow counts and arrays identical. K1 and K2
+    launch for all but ``BTreeLike`` (the model-free bisect)."""
+    from repro_torch import baselines
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(31)
+    q = np.concatenate([rng.choice(keys, BATCH - 256), fresh[-256:]])
+    ins = fresh[:BATCH]
+    total = {k: 0 for k in ops.launch_counts()}
+    rep = []
+    for name in baselines.__all__:
+        cls = getattr(baselines, name)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            idx = cls(keys, keys + 1, device=dev)
+            load_s = time.perf_counter() - t0
+            if dev == "cuda":
+                ops.reset_launch_counts()
+            f0, v0 = idx.lookup(q)
+            n_over = idx.insert(ins, ins + 1)
+            f1, v1 = idx.lookup(q)
+            f2, v2 = idx.lookup(ins)
+            if dev == "cuda":
+                counts = ops.launch_counts()
+            out[dev] = (f0, v0, n_over, f1, v1, f2, v2, _index_arrays(idx),
+                        load_s, idx.locate_strategy())
+            del idx
+        c, p = out["cuda"], out["cpu"]
+        for i in (0, 1, 3, 4, 5, 6):
+            require(np.array_equal(c[i], p[i]),
+                    f"{name}: card and CPU answers differ")
+        require(c[2] == p[2], f"{name}: overflow counts differ")
+        require(all(torch.equal(x, y) for x, y in zip(c[7], p[7])),
+                f"{name}: card and CPU arrays differ")
+        require(c[0][:-256].all() and not c[0][-256:].any()
+                and np.array_equal(c[1][:-256], q[:-256] + 1),
+                f"{name}: wrong lookups")
+        require(c[5].all() and np.array_equal(c[6], ins + 1),
+                f"{name}: inserted keys not found")
+        fused = name != "BTreeLike"
+        for k in UPLIF_KERNELS:
+            require((counts[k] > 0) == fused,
+                    f"{name}: {k} launched {counts[k]} times")
+        total = {k: total[k] + counts[k] for k in total}
+        rep.append({"baseline": name, "locate": c[9], "load_s": c[8],
+                    "overflow": int(c[2]), "launches": counts})
+    print("baselines " + json.dumps(rep) + "; card == CPU", flush=True)
+    return rep, total
+
+
+def run_pipeline(torch):
+    """``PackedCorpus`` of ``PIPELINE_DOCS`` documents with its doc-id index
+    on the card and on the CPU: batches, doc tokens after a shard streams
+    in, and retirement identical."""
+    from repro_torch.data.pipeline import PackedCorpus, PipelineConfig
+    from repro_torch.kernels import ops
+
+    cfg = PipelineConfig(n_docs=PIPELINE_DOCS)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        corpus = PackedCorpus(cfg, device=dev)
+        build_s = time.perf_counter() - t0
+        if dev == "cuda":
+            ops.reset_launch_counts()
+        batches = [corpus.batch(step)["tokens"] for step in range(4)]
+        ids = corpus.add_shard(9, 4096)
+        toks = corpus.doc_tokens(ids[:64], 256)
+        corpus.retire_docs(ids[:2048])
+        gone, _ = corpus.index.lookup(ids[:2048])
+        after = corpus.batch(4)["tokens"]
+        if dev == "cuda":
+            counts = ops.launch_counts()
+        out[dev] = (batches, toks, gone, after, build_s,
+                    _index_arrays(corpus.index))
+        del corpus
+    c, p = out["cuda"], out["cpu"]
+    require(all(np.array_equal(a, b) for a, b in zip(c[0], p[0])),
+            "pipeline: batches differ")
+    require(np.array_equal(c[1], p[1]) and np.array_equal(c[3], p[3]),
+            "pipeline: doc tokens differ")
+    require(not c[2].any() and not p[2].any(),
+            "pipeline: retired docs still found")
+    require(all(torch.equal(x, y) for x, y in zip(c[5], p[5])),
+            "pipeline: card and CPU index arrays differ")
+    for k in UPLIF_KERNELS:
+        require(counts[k] > 0, f"pipeline: {k} was not launched")
+    rep = {"path": "pipeline", "docs": PIPELINE_DOCS,
+           "build_s": c[4], "launches": counts}
+    print("pipeline " + json.dumps(rep) + "; card == CPU", flush=True)
+    return rep, counts
+
+
 def main() -> int:
     import torch
 
@@ -1737,6 +2505,15 @@ def main() -> int:
         k4_timing, variants={"tiled_rank_one_pass": k4_timing.pop("rank_pass")})
     timing["spline_lookup"] = dict(
         k5_timing["wikits"], variants={"fb_shift_36": k5_timing["fb"]})
+
+    # the front end, async maintenance, agent, baselines and pipeline; after
+    # the timing, whose single index the agent retrains
+    loaded, unloaded = runner.init_keys, runner.insert_keys
+    _, g_launches = run_gateway_path(torch, loaded, unloaded)
+    _, a_launches = run_async_path(torch, loaded, unloaded)
+    _, ag_launches = run_agent_path(torch, index, runner, live)
+    _, b_launches = run_baselines(torch, loaded[::BASELINE_EVERY], unloaded)
+    _, p_launches = run_pipeline(torch)
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
           f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
@@ -1751,7 +2528,9 @@ def main() -> int:
              "uplif_range": range_launches, "router_range": rr_launches,
              "router_waves": w_launches, "kernel_api": api_launches,
              "uplif_fanout128": fanout_launches,
-             "forecaster_k16": fc_launches}
+             "forecaster_k16": fc_launches, "gateway": g_launches,
+             "async_maintenance": a_launches, "agent": ag_launches,
+             "baselines": b_launches, "pipeline": p_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

@@ -321,7 +321,8 @@ def _merge_pending(static, bmat: BMATState, keys, vals, pending, n_bmat_live):
     return out, n_bmat_live + revived + n_new, pending.sum()
 
 
-def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic):
+def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
+           check_bmat: bool = True, merge_overflow: bool = True):
     """Batched upsert. ``keys`` is KEY_MAX-padded.
 
     Round structure (static.insert_rounds):
@@ -332,7 +333,9 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic):
          holding its insertion slot; the first pending key of each segment
          is accepted, and all accepted windows run through one vectorized
          bounded shift + fill-forward repair.
-    Leftovers merge into the BMAT.
+    Leftovers merge into the BMAT, unless ``merge_overflow=False``: the
+    subset retrain re-homes BMAT keys itself and passes both flags off
+    (``check_bmat=False`` skips the BMAT value update of round 1).
     """
     W = static.window
     cap = state.slots.keys.shape[0]
@@ -360,12 +363,14 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic):
             n_keys = n_keys + (hit & ~alive).sum()
             sv_buf[torch.where(hit, jj, cap)] = vals
             pending = pending & ~hit
-            # keys live in the BMAT -> value update there
-            ranks = _bmat_rank(static, bmat, qk)
-            _, b_alive, _, bidx = _bmat_probe(bmat, ranks, qk)
-            upd = b_alive & pending
-            bmat = bmat._replace(vals=_scatter_drop(bmat.vals, bidx, vals, upd))
-            pending = pending & ~upd
+            if check_bmat:
+                # keys live in the BMAT -> value update there
+                ranks = _bmat_rank(static, bmat, qk)
+                _, b_alive, _, bidx = _bmat_probe(bmat, ranks, qk)
+                upd = b_alive & pending
+                bmat = bmat._replace(
+                    vals=_scatter_drop(bmat.vals, bidx, vals, upd))
+                pending = pending & ~upd
             qk = torch.where(pending, keys, KEY_MAX)
             j = torch.where(pending, j, cap - 1)
 
@@ -396,9 +401,11 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic):
         placed[order] = ok
         pending = pending & ~placed
 
-    bmat, n_bmat_live, n_over = _merge_pending(
-        static, bmat, keys, vals, pending, n_bmat_live
-    )
+    n_over = torch.zeros((), dtype=torch.int64, device=keys.device)
+    if merge_overflow:
+        bmat, n_bmat_live, n_over = _merge_pending(
+            static, bmat, keys, vals, pending, n_bmat_live
+        )
     counters = Counters(
         n_keys=n_keys,
         n_bmat_live=n_bmat_live,

@@ -32,7 +32,6 @@ is key order. ``apply_wave`` applies one ``MixedWave`` (the gateway's
 dispatch unit) in the canonical order inserts, deletes, lookups, ranges.
 
 The router runs on ``cuda`` unless the caller passes ``device="cpu"``.
-``retrain_subset`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -1100,9 +1099,15 @@ class ShardedUpLIF:
         self._record_revision(*self._shard_interval(s))
 
     def retrain_subset(self, quantiles: int = 16) -> int:
-        raise NotImplementedError(
-            "retrain_subset arrives with the subset-retrain slice of the port"
-        )
+        """Subset retrain (``UpLIF.retrain_subset``) on the shard with the
+        largest BMAT, the cheapest win; returns the number absorbed."""
+        worst = int(np.argmax(self.state.bmat.size.cpu().numpy()))
+        shells = [self._unstack_shell(s) for s in range(self.n_shards)]
+        absorbed = shells[worst].retrain_subset(quantiles)
+        self._restack(shells)
+        self.n_retrains += 1
+        self._record_revision(*self._shard_interval(worst))
+        return absorbed
 
     def switch_bmat_type(self):
         # the BMAT layout is shared by every shard, so the switch revises

@@ -7,7 +7,6 @@ BMAT capacity growth and the D_update reservoir.
 
 The index runs on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request, construction raises.
-``retrain_subset`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -71,6 +70,10 @@ class UpLIFConfig:
 
 class UpLIF:
     """Batched updatable learned index (thin shell over fops)."""
+
+    # a subclass pins its locate strategy here (the B+Tree baseline's
+    # model-free bisect); None defers to ``cfg.locate``
+    LOCATE: Optional[str] = None
 
     def __init__(
         self,
@@ -182,8 +185,10 @@ class UpLIF:
         )
 
     def locate_strategy(self) -> str:
-        """Concrete locate strategy: cfg.locate resolved for the device."""
-        return resolve_locate(self.cfg.locate, native_kernels(self.device))
+        """Concrete locate strategy: the class override, else cfg.locate,
+        resolved for the device."""
+        return resolve_locate(self.LOCATE or self.cfg.locate,
+                              native_kernels(self.device))
 
     def fstatic(self) -> UpLIFStatic:
         """Host scalars for the fops suite."""
@@ -374,9 +379,43 @@ class UpLIF:
         self.n_retrains += 1
 
     def retrain_subset(self, quantiles: int = 16) -> int:
-        raise NotImplementedError(
-            "retrain_subset arrives with the subset-retrain slice of the port"
+        """Action: retrain on a data subset — absorb the densest BMAT key
+        range (one of ``quantiles`` equal-count bins, chosen on the host)
+        back in place with one insert that neither probes nor grows the
+        BMAT, then rebuild the BMAT without the absorbed keys. The rest of
+        the index is untouched. Returns the number absorbed."""
+        if self.bmat.size == 0:
+            return 0
+        bk, bv = self.bmat.extract()
+        if len(bk) == 0:
+            return 0
+        qs = np.quantile(bk, np.linspace(0, 1, quantiles + 1)).astype(np.int64)
+        counts = np.histogram(bk, bins=qs)[0]
+        b = int(np.argmax(counts))
+        lo, hi = int(qs[b]), int(qs[b + 1])
+        m = (bk >= lo) & (bk <= hi)
+        ck, cv = bk[m], bv[m]
+        if len(ck) == 0:
+            return 0
+        q, nf = self._pad(ck, KEY_MAX)
+        v, _ = self._pad(cv, 0)
+        state, res = fops.insert(
+            self.fstate, q, v, static=self.fstatic(),
+            check_bmat=False, merge_overflow=False,
         )
+        self._adopt(state)
+        absorbed_mask = ~res.pending.cpu().numpy()[:nf]
+        absorbed = int(absorbed_mask.sum())
+        if absorbed > 0:
+            keys_all, vals_all = self.bmat.extract()
+            keep = ~np.isin(keys_all, ck[absorbed_mask])
+            self.bmat._rebuild(keys_all[keep], vals_all[keep])
+            self._counters = self._counters._replace(
+                n_bmat_live=torch.tensor(int(keep.sum()), dtype=torch.int64,
+                                         device=self.device)
+            )
+        self.n_retrains += 1
+        return absorbed
 
     def switch_bmat_type(self):
         self.bmat.switch_type()

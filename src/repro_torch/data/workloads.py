@@ -5,7 +5,7 @@ A workload is executed in mixed batches against any index exposing the
 UpLIF API (lookup/insert). ``WorkloadRunner`` measures sustained throughput
 the way the paper does: initialize with the first part of the dataset, then
 run timed mixed batches that read existing keys and insert the remaining
-keys. The index decides the device; this module is numpy only.
+keys. The index decides the device; this module works on the host.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+
+from repro_torch.core.rl_agent import encode_state
 
 WORKLOADS = {
     "read_only": 0.0,
@@ -98,11 +100,10 @@ class WorkloadRunner:
         seconds: float = 5.0,
         max_ops: Optional[int] = None,
         agent=None,
+        agent_every: int = 16,
     ) -> WorkloadResult:
-        """Timed mixed workload. The tuning-agent hook arrives with the
-        tuning slice of the port: ``agent`` must be None for now."""
-        if agent is not None:
-            raise NotImplementedError("the tuning agent is not ported yet")
+        """Timed mixed workload; optionally let a tuning agent act every
+        ``agent_every`` batches (Module 4 in the serving loop)."""
         # warmup outside the timed window
         for _ in range(2):
             reads, ins = self.next_batch(write_rate)
@@ -111,6 +112,7 @@ class WorkloadRunner:
             if len(ins):
                 index.insert(ins, ins + 1)
         ops = 0
+        n_batches = 0
         t0 = time.perf_counter()
         while True:
             reads, ins = self.next_batch(write_rate)
@@ -119,6 +121,10 @@ class WorkloadRunner:
             if len(ins):
                 index.insert(ins, ins + 1)
             ops += len(reads) + len(ins)
+            n_batches += 1
+            if agent is not None and n_batches % agent_every == 0:
+                a = agent.choose(encode_state(index.measures()), explore=False)
+                agent.apply_action(index, a)
             dt = time.perf_counter() - t0
             if dt >= seconds or (max_ops and ops >= max_ops):
                 break

@@ -81,7 +81,7 @@ def bmat_rank(keys, fences, queries, sid=None, *, cap: int, nf: int,
         fanout, stream,
     )
     build.check(err, "bmat_rank")
-    bmat_rank.launches += 1
+    build.count_launch(bmat_rank)
     return out
 
 

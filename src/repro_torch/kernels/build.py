@@ -8,6 +8,10 @@ into one shared library with a plain ``extern "C"`` interface, loaded with
 hash of the sources, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source or header rebuilds.
 
+The first load is guarded by a module lock: the gateway's flusher thread
+and the maintenance workers may all reach a kernel first, and two builds
+in one process would write the same object and temporary files.
+
 The flags deliberately omit ``--use_fast_math``: the fused locate, spline
 lookup and GMM E-step kernels need IEEE division, full-precision
 ``logf``/``expf`` and no flush-to-zero to match their plain versions.
@@ -20,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -106,9 +111,11 @@ def build() -> tuple[Path, str, float]:
     return lib, "".join(logs) + link.stdout, time.perf_counter() - t0
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call in this process)."""
+def _load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
@@ -116,6 +123,27 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in this process; one
+    thread builds and loads it while any others wait)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+# how often the library was loaded (misses) and reused (hits)
+library.cache_info = _load.cache_info
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` where the wrapper launched its
+    kernel; under the lock, so threads that launch at once lose no count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(err: int, name: str) -> None:

@@ -53,7 +53,7 @@ def gmm_estep(x, weights, means, stds):
         out.data_ptr(), n, k, stream,
     )
     build.check(err, "gmm_estep")
-    gmm_estep.launches += 1
+    build.count_launch(gmm_estep)
     return out
 
 

@@ -193,7 +193,7 @@ def fused_locate(
         int(interp64), stream,
     )
     build.check(err, "fused_locate")
-    fused_locate.launches += 1
+    build.count_launch(fused_locate)
     return j, start
 
 
@@ -342,7 +342,7 @@ def spline_lookup(table, spline_keys, spline_pos, queries, *, shift: int,
         spline_keys.shape[0], shift, n_iters, int(shift >= 32), stream,
     )
     build.check(err, "spline_lookup")
-    spline_lookup.launches += 1
+    build.count_launch(spline_lookup)
     return out
 
 

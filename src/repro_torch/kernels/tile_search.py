@@ -113,7 +113,7 @@ def tile_search(slot_keys, queries, seg_tile, seg_start, *,
         p_lo, p_hi, stream,
     )
     build.check(err, "tile_search")
-    tile_search.launches += 1
+    build.count_launch(tile_search)
     return out
 
 

@@ -14,17 +14,19 @@ Closes the paper's adaptive loop over the sharded router:
                merge-shards / switch-locate, persisted per workload
                signature through ``QTableStore``;
   scheduler  — plan/build/commit: decisions become ``MaintenancePlan``
-               records, built and committed inline at a wave boundary
-               through the router's interval-validated ``commit``.
-               Maintenance never alters lookup results.
+               records admitted by interval overlap + aggregate budget;
+               builds run inline (sync) or on the ``MaintenanceExecutor``
+               worker pool (async — disjoint shard intervals rebuild
+               concurrently), and land through the router's
+               interval-validated ``commit`` at a wave boundary, paced by
+               ``commit_replay_cap`` (long replay logs drain across
+               waves). Maintenance never alters lookup results.
 
 ``SelfTuner`` bundles them into the one object serving code attaches:
 
-    tuner = SelfTuner().attach(router)
+    tuner = SelfTuner().attach(router)             # sync builds
+    tuner = SelfTuner.overlapped().attach(router)  # builds overlap waves
     ...  # per wave: tuner.observe_inserts(keys); tuner.after_wave(n, s)
-
-Builds that overlap serving waves (``SelfTuner.overlapped``) arrive with
-the async/serving slice of the port.
 """
 from __future__ import annotations
 
@@ -48,7 +50,12 @@ from repro_torch.tuning.controller import (  # noqa: F401
     QTableStore,
     ShardTuningController,
 )
-from repro_torch.tuning.executor import BUILD_ACTIONS, BuildResult, build  # noqa: F401
+from repro_torch.tuning.executor import (  # noqa: F401
+    BUILD_ACTIONS,
+    BuildResult,
+    MaintenanceExecutor,
+    build,
+)
 from repro_torch.tuning.forecast import ForecastConfig, UpdateForecaster  # noqa: F401
 from repro_torch.tuning.scheduler import (  # noqa: F401
     MaintenancePlan,
@@ -101,12 +108,29 @@ class SelfTuner:
         self._write_rate_ewma = 0.0
 
     @classmethod
-    def overlapped(cls, *args, **kwargs) -> "SelfTuner":
-        """A tuner whose builds overlap serving waves."""
-        raise NotImplementedError(
-            "SelfTuner.overlapped arrives with the async/serving slice of the "
-            "port"
+    def overlapped(
+        cls,
+        config: Optional[TunerConfig] = None,
+        max_concurrent_builds: Optional[int] = None,
+        commit_replay_cap: Optional[int] = None,
+    ) -> "SelfTuner":
+        """A tuner whose builds overlap serving waves (async pipeline).
+
+        ``max_concurrent_builds`` sizes the executor's worker pool —
+        builds for disjoint shard intervals run concurrently;
+        ``commit_replay_cap`` paces commits (at most this many logged ops
+        replayed per wave; a longer replay log drains across waves)."""
+        config = config or TunerConfig()
+        overrides: dict = {"async_build": True}
+        if max_concurrent_builds is not None:
+            overrides["max_concurrent_builds"] = int(max_concurrent_builds)
+        if commit_replay_cap is not None:
+            overrides["commit_replay_cap"] = int(commit_replay_cap)
+        config = dataclasses.replace(
+            config,
+            scheduler=dataclasses.replace(config.scheduler, **overrides),
         )
+        return cls(config)
 
     def attach(self, index: ShardedUpLIF) -> "SelfTuner":
         """Bind to a router; the forecast domain is the min/max of its live
@@ -183,15 +207,20 @@ class SelfTuner:
             self.store.save(self.signature(), self.controller)
 
     def drain(self, timeout: float = 30.0) -> int:
-        """Land every parked commit (blocking). Returns #commits."""
+        """Land every in-flight build and parked commit (blocking).
+        Returns #commits."""
         if self.scheduler is None or self.index is None:
             return 0
         return self.scheduler.drain(self.index, timeout)
 
     def close(self):
-        """Land parked commits and persist the Q-table."""
+        """Land (or abandon) in-flight builds, persist the Q-table and stop
+        the executor's workers. Draining first keeps the router's op-logs
+        from outliving the tuner when callers skip an explicit drain()."""
         self.drain()
         self.persist()
+        if self.scheduler is not None:
+            self.scheduler.close()
 
     # -- introspection --------------------------------------------------------
     def stats(self) -> dict:
@@ -211,8 +240,12 @@ class SelfTuner:
             "forecast_obs": self.forecaster.n_obs if self.forecaster else 0,
             "n_shards": self.index.n_shards if self.index else 0,
             "async_build": bool(sched and sched.cfg.async_build),
-            "max_concurrent_builds": 1,  # sync builds: one at a time
-            "commit_replay_cap": None,   # sync commits replay unbounded
+            "max_concurrent_builds": (
+                sched.cfg.max_concurrent_builds if sched else 1
+            ),
+            "commit_replay_cap": (
+                sched.cfg.commit_replay_cap if sched else None
+            ),
             "pressure": sched.pressure if sched else 0,
             "shed_waves": sched.n_shed_waves if sched else 0,
             "plans": sched.n_planned if sched else 0,

@@ -1,19 +1,45 @@
-"""The build phase of maintenance (port of the build part of
-``repro/tuning/executor.py``).
+"""Background maintenance executor (port of ``repro/tuning/executor.py``).
 
-``build`` turns one declarative ``MaintenancePlan`` into a ``StateDelta``
-by running the host-side unstack/retrain/split/merge machinery against an
-immutable ``RouterSnapshot``: it never touches the live router's tensors.
-The synchronous scheduler calls ``build`` and ``commit`` back to back. The
-worker-thread pool that overlaps builds with serving waves
-(``MaintenanceExecutor``) arrives with the async/serving slice of the
-port.
+The middle phase of the plan/build/commit pipeline: ``build`` turns one
+declarative ``MaintenancePlan`` into a ``StateDelta`` by running the
+host-side unstack/retrain/split/merge machinery against an immutable
+``RouterSnapshot``: it never touches the live router's tensors, so it can
+run on any thread. ``MaintenanceExecutor`` runs it on a pool of daemon
+worker threads: the scheduler submits (plan, snapshot) pairs after a
+decision, serving waves go on, and finished deltas are collected with
+``poll()`` at the next wave boundary, where the scheduler commits them.
+The synchronous scheduler calls ``build`` and ``commit`` back to back, so
+the two modes differ only in where the build runs, never in what it
+produces.
+
+Why threads: builds are mostly host numpy (sorts, the nullifier, the
+spline fit) and small torch ops, both of which release the GIL, so the
+workers overlap with serving on spare cores; and the delta must share the
+live process's tensors for the commit's row write. The router keeps one
+op-log per build keyed by interval, so builds for disjoint shard sets run
+(and commit) independently.
+
+Why one CUDA stream: every thread here (the gateway's flusher, client
+threads, these workers) launches on the device's default stream, which is
+a new thread's current stream. A snapshot's tensors and a build's new
+tensors are then ordered by the stream itself, and since no op writes into
+a tensor it was given, no event or ``record_stream`` is needed for a
+tensor to outlive the thread that made it. A side stream for builds would
+let a build's device work overlap a serving wave's, but the build's
+tensors would then need events before the commit reads them and
+``record_stream`` before another stream frees them. It is not used yet:
+the time goes on the host (the device idles over 90% of a write wave), so
+a second stream has little device work to overlap. One cost of the shared
+stream: a serving wave's device-to-host copy also waits for build work
+queued before it.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -108,3 +134,109 @@ def build(plan, snapshot: RouterSnapshot) -> Optional[StateDelta]:
             build_id=snapshot.build_id,
         )
     raise ValueError(f"action {plan.action} has no build phase")
+
+
+class MaintenanceExecutor:
+    """A pool of daemon workers draining a (plan, snapshot) queue through
+    ``build``. ``n_workers`` bounds how many builds run concurrently — the
+    scheduler's ``max_concurrent_builds`` maps straight onto it."""
+
+    def __init__(self, n_workers: int = 1):
+        self.n_workers = max(1, int(n_workers))
+        self._in: "queue.Queue" = queue.Queue()
+        self._out: "queue.Queue" = queue.Queue()
+        self._inflight = 0
+        self._threads: List[threading.Thread] = []
+        self._stop = threading.Event()
+
+    # -- lifecycle -----------------------------------------------------------
+    def _ensure_threads(self):
+        self._threads = [t for t in self._threads if t.is_alive()]
+        if not self._threads:
+            self._stop.clear()
+        while len(self._threads) < self.n_workers:
+            t = threading.Thread(
+                target=self._worker,
+                name=f"uplif-maintenance-{len(self._threads)}",
+                daemon=True,
+            )
+            t.start()
+            self._threads.append(t)
+
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                item = self._in.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if item is None:
+                break
+            plan, snapshot = item
+            t0 = time.perf_counter()
+            try:
+                delta = build(plan, snapshot)
+                err = None
+            except Exception as e:  # noqa: BLE001 — surfaced on the serving thread
+                delta, err = None, e
+            self._out.put(BuildResult(
+                plan=plan, delta=delta,
+                build_seconds=time.perf_counter() - t0, error=err,
+            ))
+
+    def close(self):
+        alive = [t for t in self._threads if t.is_alive()]
+        if alive:
+            self._stop.set()
+            for _ in alive:
+                self._in.put(None)
+            for t in alive:
+                t.join(timeout=5.0)
+        self._threads = []
+        # drain leftovers (stop sentinels included): a submit() after close
+        # revives the pool, which must not inherit a stale None or build a
+        # plan queued before the close
+        while True:
+            try:
+                item = self._in.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:  # sentinels were never counted
+                self._inflight = max(self._inflight - 1, 0)
+
+    # -- the scheduler-facing API --------------------------------------------
+    def submit(self, plan, snapshot: RouterSnapshot):
+        """Queue one build. The caller must hold the build's op-log
+        (``snapshot`` came from ``router.snapshot(shards)``) and must not
+        submit a build overlapping an in-flight build's key interval."""
+        self._ensure_threads()
+        self._inflight += 1
+        self._in.put((plan, snapshot))
+
+    def poll(self) -> List[BuildResult]:
+        """All builds finished since the last poll (non-blocking)."""
+        out = []
+        while True:
+            try:
+                out.append(self._out.get_nowait())
+            except queue.Empty:
+                break
+        self._inflight -= len(out)
+        return out
+
+    @property
+    def inflight(self) -> int:
+        return self._inflight
+
+    def wait(self, timeout: float = 30.0) -> List[BuildResult]:
+        """Block until every submitted build finished, or ``timeout``
+        seconds passed; return the results (a drain helper — serving code
+        uses ``poll``)."""
+        results = []
+        deadline = time.monotonic() + timeout
+        while self._inflight > 0 and time.monotonic() < deadline:
+            try:
+                results.append(self._out.get(timeout=0.05))
+                self._inflight -= 1
+            except queue.Empty:
+                continue
+        return results

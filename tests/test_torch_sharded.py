@@ -226,8 +226,8 @@ def test_replay_cap_differential_byte_identical():
 
 def test_router_needs_cuda_and_later_slices_raise(monkeypatch):
     """Without CUDA the default device raises; on the CPU the range path
-    answers (it arrived with the third slice), and ``retrain_subset``,
-    which is not ported yet, raises."""
+    answers (it arrived with the third slice), and ``retrain_subset``
+    leaves the same stacked arrays as the JAX router's."""
     from repro_torch.core.sharded import MixedWave
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -245,5 +245,11 @@ def test_router_needs_cuda_and_later_slices_raise(monkeypatch):
     assert res.lookup_found.all() and res.delete_hit is None
     with pytest.raises(ValueError, match="pad width"):
         idx.lookup(keys[:300], pad_to=256)
-    with pytest.raises(NotImplementedError):
-        idx.retrain_subset()
+    jidx = JaxRouter(keys, None, JaxConfig(), n_shards=2)
+    new = np.setdiff1d(np.random.default_rng(6).integers(
+        int(keys[0]), int(keys[-1]), 2000).astype(np.int64), keys)
+    for r in (jidx, idx):
+        r.insert(new, new + 1)
+    assert idx.retrain_subset() == jidx.retrain_subset()
+    assert idx.epoch == jidx.epoch == 1
+    assert_same_state(jidx.state, idx.state, "retrain_subset")

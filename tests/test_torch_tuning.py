@@ -304,7 +304,43 @@ def test_sync_tuner_closed_loop_preserves_semantics():
 
 
 def test_async_pieces_wait_for_their_slice():
-    with pytest.raises(NotImplementedError):
-        SchedulerConfig(async_build=True)
-    with pytest.raises(NotImplementedError):
-        SelfTuner.overlapped()
+    """The overlapped tuner (async builds on the executor's two workers,
+    paced commits) runs a shifting stream and drains: every build lands,
+    lookups match a dict oracle, and no build failed."""
+    tuner = SelfTuner.overlapped(
+        TunerConfig(
+            controller=ControllerConfig(seed=0),
+            forecast=ForecastConfig(min_obs=128, seed=0),
+            scheduler=SchedulerConfig(decide_every=2, force_absorb_fill=0.3,
+                                      budget_fraction=1.0),
+        ),
+        max_concurrent_builds=2, commit_replay_cap=256,
+    )
+    assert tuner.cfg.scheduler.async_build
+    keys = make_keys(12_000, 13)
+    idx = ShardedUpLIF(keys, keys * 2, UpLIFConfig(batch_bucket=256),
+                       n_shards=4, device="cpu")
+    tuner.attach(idx)
+    assert tuner.scheduler.executor.n_workers == 2
+    oracle = dict(zip(keys.tolist(), (keys * 2).tolist()))
+    rng = np.random.default_rng(14)
+    base = int(keys.max())
+    for wave in range(10):
+        ins = np.unique((base + rng.integers(1, 1 << 30, 600)).astype(np.int64))
+        idx.insert(ins, ins + wave)
+        oracle.update(zip(ins.tolist(), (ins + wave).tolist()))
+        tuner.observe_inserts(ins)
+        tuner.after_wave(600, 0.5)
+    tuner.drain(timeout=60.0)
+    st = tuner.stats()
+    assert st["async_build"] and st["max_concurrent_builds"] == 2
+    assert st["commit_replay_cap"] == 256
+    assert st["plans"] >= 1 and st["commits"] >= 1
+    assert st["commits"] == idx.n_commits and not idx.draining
+    assert st["last_build_error"] is None and not idx._logs
+    allk = np.fromiter(oracle, np.int64)
+    f, v = idx.lookup(allk)
+    assert f.all()
+    np.testing.assert_array_equal(v, [oracle[k] for k in allk.tolist()])
+    tuner.close()
+    assert not any(t.is_alive() for t in tuner.scheduler.executor._threads)

@@ -179,10 +179,14 @@ def test_bulk_load_byte_identical():
 
 def test_port_imports_no_jax():
     """``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
-    of the JAX package (checked in a fresh interpreter)."""
+    of the JAX package (checked in a fresh interpreter), the baselines, the
+    agent, the pipeline, the gateway and the executor's pool included."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
+        "import repro_torch.baselines, repro_torch.core.rl_agent\n"
+        "import repro_torch.data.pipeline, repro_torch.serve\n"
+        "import repro_torch.tuning.executor\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
@@ -197,7 +201,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 39  # every module was imported
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -223,8 +227,30 @@ def test_workload_runner_drives_port():
     reads, _ = runner.next_batch(0.0)
     f, v = idx.lookup(reads)
     assert f.all() and np.array_equal(v, reads + 1)
-    with pytest.raises(NotImplementedError):
-        runner.run(idx, 0.5, max_ops=1, agent=object())
+    # run(agent=): a greedy agent that retrains from every state acts each
+    # batch, on the port as on the JAX runner, leaving the same arrays
+    from repro.core import rl_agent as jrl
+    from repro.data import WorkloadRunner as JaxRunner
+    from repro_torch.core import rl_agent
+
+    agents = []
+    for mod in (jrl, rl_agent):
+        agent = mod.QLearningAgent()
+        for s in np.ndindex(6, 5, 5, 5, 2):
+            agent._q_row(s)[mod.A_RETRAIN] = 1.0
+        agents.append(agent)
+    jrun = JaxRunner(keys, init_frac=0.5, batch=512, seed=1)
+    trun = WorkloadRunner(keys, init_frac=0.5, batch=512, seed=1)
+    jidx = JaxUpLIF(jrun.init_keys, jrun.init_keys + 1, JaxConfig())
+    tidx = UpLIF(trun.init_keys, trun.init_keys + 1, UpLIFConfig(),
+                 device="cpu")
+    jres = jrun.run(jidx, 0.5, seconds=600.0, max_ops=2048,
+                    agent=agents[0], agent_every=1)
+    tres = trun.run(tidx, 0.5, seconds=600.0, max_ops=2048,
+                    agent=agents[1], agent_every=1)
+    assert tres.ops == jres.ops
+    assert tidx.n_retrains == jidx.n_retrains >= 4
+    _assert_same_arrays(jidx, tidx, "run(agent=)")
 
 
 @pytest.mark.parametrize("quantize", ["ceil", "round"])
@@ -267,5 +293,9 @@ def test_retrain_and_switch_match_jax(quantize):
     jidx.bmat._rebuild(keys, kv)
     tidx.bmat._rebuild(keys, kv)
     _assert_same_arrays(jidx, tidx, "BMAT rebuild")
-    with pytest.raises(NotImplementedError):
-        tidx.retrain_subset()
+    # the subset retrain absorbs the rebuilt BMAT's densest bin as JAX's does
+    assert tidx.retrain_subset() == jidx.retrain_subset()
+    assert tidx.n_retrains == jidx.n_retrains
+    _assert_same_arrays(jidx, tidx, "retrain_subset")
+    for a, b in zip(jidx._counters, tidx._counters):
+        assert int(a) == int(b)
