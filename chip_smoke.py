@@ -152,7 +152,29 @@ Imports only the port (``src/repro_torch``) and runs:
                 overflow counts, arrays), K1 and K2 launching for all but
                 ``BTreeLike``; ``PackedCorpus`` of 65536 documents gives the
                 same batches, doc tokens and retirement on the card as on
-                the CPU.
+                the CPU;
+ 16. LM serving — ``ServeEngine`` over ``deepseek-7b`` at full width and
+                depth (30 layers, d_model 4096, 6.9 B float32 parameters from
+                ``init_params(cfg, 0)``, bfloat16 compute) with the default
+                ``SelfTuner.overlapped(2, 4096)`` and ``max_len`` 256:
+                ``examples/serve_lm.py``'s two waves (a 48-token prompt cold
+                and then a hit; three requests of it plus 16 fresh tokens,
+                8 new tokens each), whose hits and misses must be the
+                reference's and whose tokens must equal a fresh engine's
+                cold run of each request; a timed wave of 4 distinct 64-token
+                prompts each sent twice, 32 new tokens each (hits must give
+                the misses' tokens; K1 and K2 must launch): decode ms per
+                token p50/p99, prefill ms per token, wave seconds, tokens/s,
+                ``match``/``admit`` ms; one decode step's device busy time
+                under the profiler against its bound (the weights a step
+                reads), and the host's microseconds per small torch op at
+                the phase's start and around that profiler session; decode
+                against forward over 12 tokens within the
+                reference's 0.15 and argmax agreement 0.9; the card against
+                the CPU at depth 2 in float32 over 16 tokens, logits within
+                1e-3 and the same greedy tokens; then the engine is closed
+                and the model freed. Prints parameter bytes, init seconds
+                and peak device memory.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -178,6 +200,7 @@ launch searches.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -235,6 +258,19 @@ AGENT_RUN_S = 3.0
 AGENT_BURST = 512           # adjacent fresh keys in one insert wave
 BASELINE_EVERY = 4          # baselines over every 4th loaded key (1M keys)
 PIPELINE_DOCS = 65536
+LM_ARCH = "deepseek-7b"     # served at full width and depth (phase 16)
+LM_MAX_LEN = 256            # examples/serve_lm.py's engine
+LM_NEW = 8                  # serve_lm.py's new tokens per request
+LM_TIMED_PROMPTS = 4        # distinct prompts of the timed wave, each twice
+LM_TIMED_LEN = 64
+LM_TIMED_NEW = 32
+LM_FWD = 12                 # tokens of decode against forward
+LM_FWD_TOL = 0.15           # tests/test_models_smoke.py's rtol = atol
+LM_FWD_AGREE = 0.9          # and its argmax agreement
+LM_CPU_LAYERS = 2           # card against CPU at this depth, float32
+LM_CPU_TOKENS = 16
+LM_CPU_TOL = 1e-3           # see run_lm_serve_path's card-vs-CPU note
+LM_LEFT_BYTES = 256 << 20   # allowed on the card after phase 16's tear-down
 
 
 class SmokeFailure(RuntimeError):
@@ -2394,12 +2430,333 @@ def run_pipeline(torch):
     return rep, counts
 
 
+# ---------------------------------------------------------------------------
+# LM serving (phase 16)
+# ---------------------------------------------------------------------------
+
+
+def _lm_tokens(torch, prompt, device):
+    return torch.as_tensor(np.asarray(prompt, np.int64), device=device)[None]
+
+
+def _instrument(torch, eng):
+    """Record, on the engine's stream, a CUDA event after every decode step
+    with the cache length it started from, and time ``match`` and ``admit``
+    on the host clock (both return host values, so they end synchronized).
+    Returns the three records."""
+    steps, match_s, admit_s = [], [], []
+    decode, match, admit = (eng._decode, eng.prefix_index.match,
+                            eng.prefix_index.admit)
+
+    def timed_decode(tok, cache):
+        out = decode(tok, cache)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append((cache.kv["len"], ev))
+        return out
+
+    def timed(fn, into):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    eng._decode = timed_decode
+    eng.prefix_index.match = timed(match, match_s)
+    eng.prefix_index.admit = timed(admit, admit_s)
+    return steps, match_s, admit_s
+
+
+def _split_steps(steps, prompts):
+    """Per request (in serving order), its decode steps as (ms since the
+    previous step's event, kind): kind "prefill" while the cache holds
+    fewer tokens than the prompt, else "decode". A request begins where the
+    cache length drops; its first step's time runs from the previous
+    request's last step, so it also holds the ``match`` and the cache
+    set-up (None for the first request), and its first "decode" step's
+    time holds the ``admit`` and the first token's read-back."""
+    reqs, prev = [], None
+    for length, ev in steps:
+        if prev is None or length <= prev[0]:
+            reqs.append([])
+        ms = None if prev is None else prev[1].elapsed_time(ev)
+        reqs[-1].append((ms, length))
+        prev = (length, ev)
+    require(len(reqs) == len(prompts),
+            f"lm: {len(reqs)} requests seen in the decode steps, "
+            f"{len(prompts)} sent")
+    return [[(ms, "prefill" if length < len(p) else "decode")
+             for ms, length in r] for r, p in zip(reqs, prompts)]
+
+
+def _cold_tokens(cfg, weights, prompt, n_new, device):
+    """``prompt``'s tokens on a fresh engine without a tuner."""
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(cfg, weights, max_len=LM_MAX_LEN, tuner=None,
+                      device=device)
+    [r] = eng.generate([Request(0, prompt, n_new)])
+    eng.close()
+    return r.out
+
+
+def _close_logits(a, b, tol):
+    """Largest excess of |a - b| over ``tol * (1 + |b|)`` (allclose with
+    rtol = atol = tol passes where it is <= 0), and the largest |a - b|."""
+    diff = (a - b).abs()
+    return (float((diff - tol * (1 + b.abs())).max()), float(diff.max()))
+
+
+def host_us_per_op(torch, device, n=2000) -> float:
+    """Host microseconds per small torch op: ``n`` in-place adds on one
+    element, dispatched back to back and synchronized once at the end (the
+    device does each in about 2 us, so the host's dispatch sets the time)."""
+    x = torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def run_lm_serve_path(torch, cfg, device="cuda"):
+    """Phase 16: ``ServeEngine`` over ``cfg`` on ``device`` with the default
+    overlapped tuner (see the module docstring). Returns the report and the
+    kernels' launches on the serving waves.
+
+    Card against CPU: float32 on both sides (TF32 off), the same weights and
+    tokens. The two sides sum the same float32 products in other orders
+    (cuBLAS's blocked and split sums against the CPU's), which moves a dot
+    product of length K by about sqrt(K) ulps of its terms: about 1e-5 on
+    logits of unit scale at K = 11008. ``LM_CPU_TOL`` (1e-3, relative and
+    absolute) is two orders above that and two below the gaps between the
+    top logits that greedy decoding reads."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import (
+        decode_step,
+        forward_lm,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.serve import Request, ServeEngine
+
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": cfg.n_params(),
+           "host_us_per_op": {"start": host_us_per_op(torch, device)}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    nbytes = lambda tree: sum(  # noqa: E731
+        nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+        for v in tree.values())
+    rep["param_bytes"] = nbytes(params)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device=device)
+    torch.cuda.synchronize()
+    rep["engine_s"] = time.perf_counter() - t0
+    rep["weight_bytes"] = nbytes(eng.params)
+    print(f"lm: {cfg.name} {cfg.n_layers} layers, {rep['n_params']} "
+          f"parameters, {rep['param_bytes']} bytes stored, "
+          f"{rep['weight_bytes']} as the engine reads them; init "
+          f"{rep['init_s']:.2f} s, engine {rep['engine_s']:.2f} s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
+          flush=True)
+    tuner = eng.prefix_index.tuner
+    require(tuner is not None and tuner.cfg.scheduler.async_build,
+            "lm: the engine's default tuner is not the overlapped one")
+    require(set(eng.prefix_index.index.shard_locate()) == {"fused"},
+            "lm: the prefix index does not locate with the fused kernels")
+    steps, match_s, admit_s = _instrument(torch, eng)
+
+    # serve_lm.py's waves, then the timed wave; counts reset just before
+    rng = np.random.default_rng(0)
+    base_prompt = rng.integers(0, cfg.vocab, 48).astype(np.int32)
+    waves = [[base_prompt, base_prompt],
+             [np.concatenate([base_prompt, rng.integers(
+                 0, cfg.vocab, 16).astype(np.int32)]) for _ in range(3)]]
+    trng = np.random.default_rng(16)
+    distinct = [trng.integers(0, cfg.vocab, LM_TIMED_LEN).astype(np.int32)
+                for _ in range(LM_TIMED_PROMPTS)]
+    timed = distinct + distinct
+    ops.reset_launch_counts()
+    outs, counts_after = [], []
+    for wave in waves:
+        done = eng.generate([Request(i, p, LM_NEW)
+                             for i, p in enumerate(wave)])
+        outs.append([r.out for r in done])
+        counts_after.append((eng.prefix_index.hits, eng.prefix_index.misses))
+    del steps[:]
+    match_s.clear()
+    admit_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.generate([Request(i, p, LM_TIMED_NEW)
+                         for i, p in enumerate(timed)])
+    wave_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    timed_out = [r.out for r in done]
+    print(f"lm: K launches on the serving waves {launches}", flush=True)
+    require(counts_after == [(1, 1), (4, 1)],
+            f"lm: hits and misses after the waves {counts_after}, "
+            f"expected [(1, 1), (4, 1)]")
+    require(launches["fused_locate"] > 0 and launches["bmat_rank"] > 0,
+            f"lm: K1 or K2 did not launch on the serving path {launches}")
+    require(eng.prefix_index.hits == 8 and eng.prefix_index.misses == 5,
+            "lm: the timed wave's second sends did not all hit")
+    for i in range(LM_TIMED_PROMPTS):
+        require(timed_out[i + LM_TIMED_PROMPTS] == timed_out[i],
+                f"lm: timed prompt {i}: the hit's tokens differ from the "
+                f"miss's")
+
+    per_req = _split_steps(steps, timed)
+    dec = [ms for r in per_req for ms, k in
+           [x for x in r if x[1] == "decode"][1:]]
+    miss_pre = [ms for r in per_req[:LM_TIMED_PROMPTS] for ms, k in r[1:]
+                if k == "prefill"]
+    # from the previous request's last step to this one's last prompt step
+    to_prompt_end = [sum(ms for ms, k in r if k == "prefill")
+                     for r in per_req[1:]]
+    n_gen = LM_TIMED_NEW * len(timed)
+    rep["timed_wave"] = {
+        "requests": len(timed), "prompt_tokens": LM_TIMED_LEN,
+        "new_tokens": LM_TIMED_NEW, "wave_s": wave_s,
+        "generated_tokens_per_s": n_gen / wave_s,
+        "decode_steps": len(steps),
+        "decode_ms": {"p50": float(np.percentile(dec, 50)),
+                      "p99": float(np.percentile(dec, 99)),
+                      "mean": float(np.mean(dec)), "n": len(dec)},
+        "miss_prefill_ms_per_token": float(np.mean(miss_pre)),
+        "miss_prompt_ms": to_prompt_end[:LM_TIMED_PROMPTS - 1],
+        "hit_prompt_ms": to_prompt_end[LM_TIMED_PROMPTS - 1:],
+        "hit_prefill_steps": [sum(k == "prefill" for _, k in r)
+                              for r in per_req[LM_TIMED_PROMPTS:]],
+        "match_ms": {"p50": float(np.median(match_s)) * 1e3,
+                     "max": float(np.max(match_s)) * 1e3},
+        "admit_ms": {"p50": float(np.median(admit_s)) * 1e3,
+                     "max": float(np.max(admit_s)) * 1e3},
+    }
+
+    # the device's busy time per decode step, against its wall time
+    cache = init_cache(cfg, 1, LM_MAX_LEN, device=device)
+    tok = _lm_tokens(torch, [7], device)
+    for _ in range(3):
+        decode_step(eng.params, cfg, tok, cache)
+    state = {"cache": cache}
+
+    def one_step():
+        _, state["cache"] = decode_step(eng.params, cfg, tok, state["cache"])
+
+    rep["host_us_per_op"]["before_profiler"] = host_us_per_op(torch, device)
+    dev = _device_events(torch, lambda: [one_step() for _ in range(8)])
+    rep["host_us_per_op"]["after_profiler"] = host_us_per_op(torch, device)
+    wall = call_ms(torch, one_step, 8)
+    rep["step_device_busy_ms"] = _per_call_ms(dev, 8) if dev else None
+    rep["step_device_events"] = len(dev) / 8 if dev else None
+    rep["step_back_to_back_ms"] = wall
+    rep["threads"] = threading.active_count()
+    # a step reads every weight but the embedding table (one row of it)
+    # and the K/V written so far: at the timed wave's mean position
+    emb = eng.params["embed"]
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    step_bytes = (rep["weight_bytes"] - emb.numel() * emb.element_size()
+                  + cfg.d_model * emb.element_size()
+                  + kv_row * (LM_TIMED_LEN + LM_TIMED_NEW // 2))
+    rep["bound_bytes"] = step_bytes
+    rep["bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    del cache, state
+
+    # every request of serve_lm.py's waves against a fresh engine's cold run
+    for wave, out in zip(waves, outs):
+        for p, o in zip(wave, out):
+            require(o == _cold_tokens(cfg, eng.params, p, LM_NEW, device),
+                    "lm: a request's tokens differ from its cold run")
+
+    # decode against forward (tests/test_models_smoke.py's check)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, LM_FWD))
+    full = forward_lm(eng.params, cfg, {"tokens": _lm_tokens(
+        torch, toks[0], device)}).float()
+    cache = init_cache(cfg, 1, LM_MAX_LEN, device=device)
+    stepped = []
+    for i in range(LM_FWD):
+        lg, cache = decode_step(eng.params, cfg,
+                                _lm_tokens(torch, toks[0, i:i + 1], device),
+                                cache)
+        stepped.append(lg[:, 0].float())
+    stepped = torch.stack(stepped, 1)
+    excess, spread = _close_logits(stepped, full, LM_FWD_TOL)
+    agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
+    rep["decode_vs_forward"] = {"tokens": LM_FWD, "max_abs_diff": spread,
+                                "tol": LM_FWD_TOL, "argmax_agree": agree}
+    require(excess <= 0 and agree >= LM_FWD_AGREE,
+            f"lm: decode and forward disagree (max |diff| {spread}, "
+            f"argmax agreement {agree})")
+    del full, cache, stepped
+    eng.close()
+    # the timing wrappers hold the engine in a reference cycle
+    del eng, tuner, emb, steps
+    gc.collect()
+
+    # the card against the CPU at depth LM_CPU_LAYERS, float32
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
+                               compute_dtype="float32")
+    p2 = {k: v for k, v in params.items() if k != "layers"}
+    p2["layers"] = {"blk0_attn": {k: v[:LM_CPU_LAYERS] for k, v in
+                                  params["layers"]["blk0_attn"].items()}}
+    host = {k: v.cpu() for k, v in p2.items() if k != "layers"}
+    host["layers"] = {"blk0_attn": {k: v.cpu() for k, v in
+                                    p2["layers"]["blk0_attn"].items()}}
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "lm: TF32 matmuls are on; float32 on the card must be float32")
+    caches = [init_cache(cfg2, 1, LM_CPU_TOKENS, device=d)
+              for d in (device, "cpu")]
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab, 4)
+    tok_dev = [_lm_tokens(torch, prompt[:1], d) for d in (device, "cpu")]
+    worst, spread, gen = -1.0, 0.0, []
+    for i in range(LM_CPU_TOKENS):
+        lg_c, caches[0] = decode_step(p2, cfg2, tok_dev[0], caches[0])
+        lg_h, caches[1] = decode_step(host, cfg2, tok_dev[1], caches[1])
+        e, s = _close_logits(lg_c.cpu(), lg_h, LM_CPU_TOL)
+        worst, spread = max(worst, e), max(spread, s)
+        pick_c, pick_h = int(lg_c.argmax()), int(lg_h.argmax())
+        require(pick_c == pick_h, f"lm: card and CPU greedy tokens differ "
+                                  f"at step {i}: {pick_c} != {pick_h}")
+        nxt = [int(prompt[i + 1])] if i + 1 < len(prompt) else [pick_c]
+        gen.append(pick_c)
+        tok_dev = [_lm_tokens(torch, nxt, d) for d in (device, "cpu")]
+    rep["card_vs_cpu"] = {"n_layers": LM_CPU_LAYERS, "steps": LM_CPU_TOKENS,
+                          "max_abs_diff": spread, "tol": LM_CPU_TOL,
+                          "greedy": gen}
+    require(worst <= 0, f"lm: card and CPU logits differ by {spread} at "
+                        f"depth {LM_CPU_LAYERS}")
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del p2, host, caches, params, lg_c, lg_h
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["left_bytes"] = torch.cuda.memory_allocated() - base
+    require(rep["left_bytes"] < LM_LEFT_BYTES,
+            f"lm: {rep['left_bytes']} bytes still allocated after tear-down")
+    rep["hits_misses"] = counts_after
+    print("lm serve " + json.dumps(rep), flush=True)
+    return rep, launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.core import UpLIF
     from repro_torch.data import WorkloadRunner, make_dataset
     from repro_torch.kernels import build, ops
@@ -2514,6 +2871,7 @@ def main() -> int:
     _, ag_launches = run_agent_path(torch, index, runner, live)
     _, b_launches = run_baselines(torch, loaded[::BASELINE_EVERY], unloaded)
     _, p_launches = run_pipeline(torch)
+    _, lm_launches = run_lm_serve_path(torch, get_config(LM_ARCH))
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
           f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
@@ -2530,7 +2888,8 @@ def main() -> int:
              "uplif_fanout128": fanout_launches,
              "forecaster_k16": fc_launches, "gateway": g_launches,
              "async_maintenance": a_launches, "agent": ag_launches,
-             "baselines": b_launches, "pipeline": p_launches}
+             "baselines": b_launches, "pipeline": p_launches,
+             "lm_serve": lm_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

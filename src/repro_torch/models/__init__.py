@@ -1,0 +1,23 @@
+"""The LM substrate (port of ``repro/models``): the dense and VLM families'
+forward and decode paths, the parameter descriptors of all ten
+architectures, random init and the conversion of a numpy parameter tree."""
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.init import init_params, param_descriptors
+from repro_torch.models.transformer import (
+    compute_params,
+    decode_step,
+    forward_lm,
+    init_cache,
+)
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "param_descriptors",
+    "params_from_numpy",
+    "compute_params",
+    "forward_lm",
+    "init_cache",
+    "decode_step",
+]

@@ -1,0 +1,184 @@
+"""Attention (port of ``repro/models/attention.py``): GQA/MQA/MHA with an
+optional bias, local window and softcap, with and without a KV cache.
+
+All functions take *flat* projection weights (d_model, n*head_dim), as the
+reference does. The arithmetic is the reference's own, op for op, in plain
+torch (see ``attention_core``); no library attention kernel replaces it,
+because none rounds the scale, the scores and the probabilities where the
+reference does. MLA and cross-attention come with their families' slices
+(``ROADMAP.md`` queue 1). The reference's sharding ``constrain`` hook has no
+counterpart on one card.
+
+The cache differs from the reference in one way: its ``length`` is a host
+integer and new K/V are written into the cache's tensors in place (the
+reference's ``dynamic_update_slice`` returns new arrays). Copying the cache
+on every token would cost more than the step at full width. A caller that
+keeps a cache while another decodes from the same tensors must clone it
+(``ServeEngine`` does).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.layers import apply_rope, rope_tables, softcap
+
+NEG_INF = -2.0e38
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, T, Hkv, dh)
+    v: torch.Tensor       # (B, T, Hkv, dh)
+    length: int           # tokens already in cache (a host integer)
+
+
+def _causal_mask(s: int, t: int, offset, device=None):
+    """(s, t) additive mask; offset = #cached tokens before this chunk."""
+    q_pos = torch.arange(s, device=device)[:, None] + offset
+    k_pos = torch.arange(t, device=device)[None, :]
+    return torch.where(k_pos <= q_pos, 0.0, NEG_INF)
+
+
+def _local_mask(s: int, t: int, offset, window: int, device=None):
+    q_pos = torch.arange(s, device=device)[:, None] + offset
+    k_pos = torch.arange(t, device=device)[None, :]
+    ok = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _scale(dh: int, dtype) -> float:
+    """sqrt(dh) rounded to the compute dtype, as the reference divides by
+    ``jnp.sqrt(dh).astype(q.dtype)`` (11.3125 in bfloat16 for dh 128)."""
+    return torch.tensor(math.sqrt(dh), dtype=torch.float64).to(dtype).item()
+
+
+def attention_core(q, k, v, mask, logit_cap: float = 0.0):
+    """q: (B,S,H,dh), k/v: (B,T,Hkv,dh) with H % Hkv == 0. f32 softmax.
+    ``mask`` is an additive float32 (S, T) mask, or None where every key is
+    visible to every query (a single decode query over its written cache,
+    whose causal mask is all zeros)."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    q = q.reshape(b, s, hkv, g, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k) / _scale(dh, q.dtype)
+    scores = softcap(scores.float(), logit_cap)
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, dh)
+
+
+# q-length above which self-attention switches to chunked execution: caps the
+# materialized score block at (B, H, CHUNK, T) instead of (B, H, S, T).
+CHUNK_THRESHOLD = 8192
+
+
+def _pick_chunk(n_heads: int, t: int) -> int:
+    # smaller chunks for head-replicated archs (H not divisible by the TP
+    # degree) whose score tensors cannot shard over heads
+    return 64 if (n_heads % 16 or t > 131072) else 512
+
+
+def chunked_self_attention(q, k, v, *, causal: bool, window: int, cap: float,
+                           chunk: int):
+    """Exact attention with q processed CHUNK rows at a time: bounds the
+    score working set to (B, H, chunk, T); the inner softmax stays full-T
+    (exact)."""
+    b, s, h, dh = q.shape
+    t = k.shape[1]
+    nc = s // chunk
+    if nc * chunk != s:
+        raise ValueError(f"q length {s} is not a multiple of chunk {chunk}")
+    k_pos = torch.arange(t, device=q.device)[None, :]
+    outs = []
+    for ci in range(nc):
+        q_pos = ci * chunk + torch.arange(chunk, device=q.device)[:, None]
+        if causal:
+            ok = k_pos <= q_pos
+            if window:
+                ok &= k_pos > q_pos - window
+        else:
+            ok = torch.ones((chunk, t), dtype=torch.bool, device=q.device)
+        mask = torch.where(ok, 0.0, NEG_INF)
+        outs.append(attention_core(q[:, ci * chunk:(ci + 1) * chunk], k, v,
+                                   mask, cap))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_cached(q, k, v, cache: KVCache, window: int, cap: float):
+    """Write k/v at ``cache.length`` in place and attend over the written
+    prefix. The reference attends over the whole cache and masks the keys
+    past ``length + s`` with ``NEG_INF``, whose probabilities are exactly 0;
+    the port leaves those keys out."""
+    s = q.shape[1]
+    start, t = cache.length, cache.k.shape[1]
+    n = start + s
+    if n > t:
+        raise ValueError(f"the cache holds {t} positions; {start} are "
+                         f"written and {s} more do not fit")
+    cache.k[:, start:n] = k
+    cache.v[:, start:n] = v
+    if window:
+        mask = _local_mask(s, n, start, window, q.device)
+    else:
+        mask = None if s == 1 else _causal_mask(s, n, start, q.device)
+    out = attention_core(q, cache.k[:, :n].to(q.dtype),
+                         cache.v[:, :n].to(q.dtype), mask, cap)
+    return out, KVCache(cache.k, cache.v, n)
+
+
+def _gqa(x, p, cfg, tables, cache: Optional[KVCache] = None,
+         window: int = 0, causal: bool = True):
+    """``gqa`` with the RoPE tables already computed (one per forward)."""
+    b, s, d = x.shape
+    dh = cfg.head_dim
+    cd = x.dtype
+    q = torch.matmul(x, p["wq"].to(cd))
+    k = torch.matmul(x, p["wk"].to(cd))
+    v = torch.matmul(x, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = apply_rope(q.reshape(b, s, cfg.n_heads_eff, dh), tables)
+    k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, dh), tables)
+    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+
+    if cache is None:
+        if s >= CHUNK_THRESHOLD:
+            out = chunked_self_attention(
+                q, k, v, causal=causal, window=window,
+                cap=cfg.attn_logit_softcap,
+                chunk=_pick_chunk(cfg.n_heads_eff, s),
+            )
+        else:
+            if causal:
+                mask = (
+                    _local_mask(s, s, 0, window, x.device)
+                    if window
+                    else _causal_mask(s, s, 0, x.device)
+                )
+            else:
+                mask = torch.zeros((s, s), device=x.device)
+            out = attention_core(q, k, v, mask, cfg.attn_logit_softcap)
+        new_cache = None
+    else:
+        out, new_cache = _attend_cached(q, k, v, cache, window,
+                                        cfg.attn_logit_softcap)
+
+    out = out.reshape(b, s, cfg.n_heads_eff * dh)
+    return torch.matmul(out, p["wo"].to(cd)), new_cache
+
+
+def gqa(x, p, cfg, positions, cache: Optional[KVCache] = None,
+        window: int = 0, causal: bool = True):
+    """Standard attention path. ``p`` holds wq/wk/wv/wo (+ optional biases).
+    With a cache, x is the new chunk (decode: S=1) written at cache.length
+    (in place). Returns (out, new_cache)."""
+    tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                         cfg.rope_frac, x.dtype)
+    return _gqa(x, p, cfg, tables, cache, window, causal)

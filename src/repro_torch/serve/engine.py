@@ -1,28 +1,50 @@
-"""The serving engine's UpLIF-backed prefix-cache index (the non-LM part
-of ``repro/serve/engine.py``).
+"""Batched serving engine with an UpLIF-backed prefix-cache index (port of
+``repro/serve/engine.py``).
 
-The engine memoizes decode states for previously seen prompt prefixes.
-Prefix fingerprints (a rolling hash of token prefixes) form a heavily
-updated sparse key space — every admitted request inserts new
-fingerprints, evictions delete them — the updatable-index workload UpLIF
-targets. Lookups run batched once per admission wave.
+Second framework-level integration of the paper's technique: the serving
+engine memoizes decode states for previously seen prompt prefixes. Prefix
+fingerprints (a rolling hash of token prefixes) form a heavily updated
+sparse key space — every admitted request inserts new fingerprints,
+evictions delete them — the updatable-index workload UpLIF targets.
+Lookups run batched once per admission wave; on CUDA they run the fused
+locate (K1) and BMAT rank (K2) kernels, and the tuner's forecaster its
+E-step (K3).
 
-``ServeEngine`` itself (continuous-batching decode over the LM substrate)
-is not ported yet: it needs the port's models (``models/``), which come
-with a later slice. ``PrefixCacheIndex`` and the gateway it opens work
-without it.
+``ServeEngine`` decodes greedily over the port's dense/VLM LM substrate
+(``repro_torch.models``), with two departures from the reference, both
+about the stored caches (``ROADMAP.md`` §3):
+
+- ``decode_step`` writes K/V into the cache's tensors in place, so the
+  engine clones a cache when it admits it and when a hit takes it: no
+  stored cache is ever a tensor that a decode writes to.
+- A hit resumes at the matched prefix, ``n_blocks * every`` tokens, not
+  at the stored prompt's full length, so a prompt that differs from the
+  stored one after the last matched block decodes its own tokens (the
+  reference decodes from the other prompt's cache there). Where the tail
+  past the prefix is empty, the last matched token is decoded again for
+  its logits. Where the stored prompt is exactly the matched prefix, the
+  tokens are the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.sharded import ShardedUpLIF
 from repro_torch.core.uplif import UpLIFConfig
+from repro_torch.kernels.ops import resolve_device
+from repro_torch.models.transformer import (
+    compute_params,
+    decode_step,
+    init_cache,
+)
 from repro_torch.serve.gateway import GatewayConfig, RequestGateway
+from repro_torch.tuning import SelfTuner
 
 _MASK = (1 << 52) - 1
 _P = 1000003
@@ -184,3 +206,123 @@ class PrefixCacheIndex:
 
     def memory_bytes(self) -> int:
         return self.index.index_bytes()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # int32 tokens
+    max_new_tokens: int = 16
+    out: Optional[List[int]] = None
+
+
+class ServeEngine:
+    """Greedy decode engine with the prefix-cache index, on ``device``
+    (``cuda`` unless the caller passes another): the model, the caches and
+    the index's router all live there.
+
+    ``params`` is the stored parameter tree (``init_params`` or
+    ``params_from_numpy``); the engine keeps ``compute_params`` of it as
+    ``self.params``, so a leaf already in the compute dtype on ``device`` is
+    shared, not copied."""
+
+    _DEFAULT_TUNER = object()  # sentinel: "make one" vs an explicit None
+    PREFIX_EVERY = 16          # tokens per fingerprinted prefix block
+
+    def __init__(
+        self,
+        cfg,
+        params,
+        max_batch: int = 8,
+        max_len: int = 512,
+        tuner: Any = _DEFAULT_TUNER,
+        async_maintenance: bool = True,
+        max_concurrent_builds: int = 2,
+        commit_replay_cap: Optional[int] = 4096,
+        locate: str = "auto",
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = compute_params(params, cfg, self.device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        if tuner is self._DEFAULT_TUNER:
+            # self-tuning on unless explicitly disabled; the engine defaults
+            # to the async pipeline so index rebuilds overlap decode waves —
+            # pass async_maintenance=False to get the stalling sync builds.
+            # max_concurrent_builds sizes the maintenance worker pool and
+            # commit_replay_cap paces each commit's op-log rebase.
+            tuner = (
+                SelfTuner.overlapped(
+                    max_concurrent_builds=max_concurrent_builds,
+                    commit_replay_cap=commit_replay_cap,
+                )
+                if async_maintenance
+                else SelfTuner()
+            )
+        self.prefix_index = PrefixCacheIndex(tuner=tuner, locate=locate,
+                                             device=self.device)
+
+    def open_gateway(
+        self, config: Optional[GatewayConfig] = None
+    ) -> RequestGateway:
+        """Async ingestion front end over the engine's prefix index (see
+        ``PrefixCacheIndex.open_gateway``)."""
+        return self.prefix_index.open_gateway(config)
+
+    def close(self):
+        """Idempotent; safe concurrently with in-flight gateway flushes."""
+        self.prefix_index.close()
+
+    def _decode(self, tok, cache):
+        return decode_step(self.params, self.cfg, tok, cache)
+
+    def _tokens(self, prompt: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.device)[None, :]
+
+    def _prefill(self, prompt: np.ndarray):
+        """Run the prompt through decode steps to build a cache (simple
+        token-at-a-time prefill, as the reference's)."""
+        cache = init_cache(self.cfg, 1, self.max_len, device=self.device)
+        toks = self._tokens(prompt)
+        logits = None
+        for i in range(toks.shape[1]):
+            logits, cache = self._decode(toks[:, i:i + 1], cache)
+        return logits, cache
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Serve a wave of requests (greedy decoding), reusing prefix caches."""
+        every = self.PREFIX_EVERY
+        for req in requests:
+            if len(req.prompt) == 0:
+                raise ValueError(f"request {req.rid} has an empty prompt")
+            fps = prefix_fingerprints(req.prompt, every)
+            sid, nblk = self.prefix_index.match(fps)
+            # match() only returns slots that are still resident
+            if sid >= 0:
+                # resume at the matched prefix; an empty tail decodes the
+                # last matched token again, for its logits
+                start = min(nblk * every, len(req.prompt) - 1)
+                cache = self.prefix_index.slots[sid].clone(start)
+            else:
+                start = 0
+                cache = init_cache(self.cfg, 1, self.max_len,
+                                   device=self.device)
+            toks = self._tokens(req.prompt)
+            for i in range(start, toks.shape[1]):
+                logits, cache = self._decode(toks[:, i:i + 1], cache)
+            # the stored copy is never a tensor that a decode writes to
+            self.prefix_index.admit(fps, cache.clone())
+            out = []
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            for i in range(req.max_new_tokens):
+                out.append(int(tok[0, 0]))
+                if i + 1 < req.max_new_tokens:  # the last token needs no step
+                    logits, cache = self._decode(tok, cache)
+                    tok = torch.argmax(logits[:, -1:], dim=-1)
+            req.out = out
+        # background maintenance runs between waves, never inside one
+        self.prefix_index.maintain()
+        return requests

@@ -180,13 +180,16 @@ def test_bulk_load_byte_identical():
 def test_port_imports_no_jax():
     """``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
     of the JAX package (checked in a fresh interpreter), the baselines, the
-    agent, the pipeline, the gateway and the executor's pool included."""
+    agent, the pipeline, the gateway, the executor's pool, the LM substrate
+    (``models``, ``configs``) and ``ServeEngine`` included."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
         "import repro_torch.baselines, repro_torch.core.rl_agent\n"
         "import repro_torch.data.pipeline, repro_torch.serve\n"
         "import repro_torch.tuning.executor\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "from repro_torch.serve import ServeEngine\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
@@ -201,7 +204,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 58  # every module was imported
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
