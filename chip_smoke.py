@@ -175,6 +175,31 @@ Imports only the port (``src/repro_torch``) and runs:
                 1e-3 and the same greedy tokens; then the engine is closed
                 and the model freed. Prints parameter bytes, init seconds
                 and peak device memory.
+ 17. MoE and MLA — (a) phase 16's serving (``run_lm_serve_path``) over
+                ``deepseek-v2-236b`` at full width (d_model 5120, 128 heads,
+                MLA kv_lora 512 / q_lora 1536, 160 routed experts of d_ff
+                1536 + 2 shared, top-6, ``dense_chunked``, vocab 102400,
+                bfloat16 stored) and depth 4 of 60 (16.94 B parameters):
+                the same waves and checks, K1, K2 and K3 launched, decode
+                against forward at the capacity factor where no expert
+                drops a token (27: the reference's 16 is too low for 160
+                experts over top-6, and its reading is reported beside),
+                the card against the CPU at depth 1 in float32; the step's
+                bound counts every expert (the dense dispatch reads them
+                all) and, for the record, the routed ones alone;
+                (b) ``qwen3-moe-30b-a3b`` at full width and depth 8 of 48:
+                ``forward_lm`` of a (2, 256) batch with ragged dispatch
+                (K6, 3 launches a layer) against dense, both at capacity
+                factor 16, where the dense dispatch drops nothing (the
+                reference test's 8 drops at this width; its reading is
+                reported beside), in float32 (logits within 1e-3, the same
+                argmax everywhere) and bfloat16 (max |diff| reported);
+                (c) K6 against its plain version at those forwards'
+                shapes (qwen3-moe's up- and down-projections, deepseek-v2's),
+                with empty groups and rows past the sum, and off the
+                16-byte vector path, in float32 and bfloat16, then timed
+                beside ``F.grouped_mm`` (the yardstick only).
+                ``run_moe_path(torch)`` runs the phase alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -196,12 +221,15 @@ parameters and the [N, K] output once, and the operations are 11 per sample
 and component. For K4, bytes are the queries, the outputs, the segment
 arrays and every key of each tile a query routes to (the function counts
 over the whole tile), and the operations are 2048 compares per query the
-launch searches.
+launch searches. For K6, bytes are lhs, the non-empty groups' rhs and out,
+and the operations 2 M K N over the bf16 tensor-core peak (989 TFLOP/s)
+or, in float32, which K6 computes without TF32, over 67 TFLOP/s.
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -271,6 +299,26 @@ LM_CPU_LAYERS = 2           # card against CPU at this depth, float32
 LM_CPU_TOKENS = 16
 LM_CPU_TOL = 1e-3           # see run_lm_serve_path's card-vs-CPU note
 LM_LEFT_BYTES = 256 << 20   # allowed on the card after phase 16's tear-down
+BF16_OPS_PER_S = 989e12     # the H100's dense bf16 tensor-core peak
+MOE_SERVE_ARCH = "deepseek-v2-236b"  # served at full width (phase 17a)
+MOE_SERVE_LAYERS = 4        # of 60: 16.94 B parameters, 33.9 GB bfloat16
+MOE_CPU_LAYERS = 1          # card against CPU at this depth, float32
+MOE_FWD_CF = 16.0           # the reference's decode-against-forward factor
+MOE_RAGGED_ARCH = "qwen3-moe-30b-a3b"  # ragged against dense (phase 17b)
+MOE_RAGGED_LAYERS = 8       # of 48: 5.61 B parameters, 22.4 GB float32
+MOE_RAGGED_BATCH = (2, 256)
+MOE_RAGGED_CF = 8.0         # test_moe_ragged_matches_dense's factor
+MOE_RAGGED_TOL = 1e-3
+# K6 at the main path's shapes (M, K, N, G): qwen3-moe's expert up- and
+# down-projections at 2 x 256 tokens x top-8, deepseek-v2's at 512 x top-6
+K6_SHAPES = {"qwen3_we1": (4096, 2048, 768, 128),
+             "qwen3_we2": (4096, 768, 2048, 128),
+             "deepseek_v2_we1": (3072, 5120, 1536, 160)}
+K6_HEADLINE = "qwen3_we1 bfloat16"  # phase 17b's bfloat16 up-projection
+K6_F32_TOL = 1e-4
+BF16_ULP = 2.0 ** -7        # one bf16 ulp is at most 2^-7 of the value
+K6_SOURCE = "src/repro_torch/kernels/csrc/ragged_dot.cu"
+K6_REPLACES = "src/repro/models/moe.py:81"
 
 
 class SmokeFailure(RuntimeError):
@@ -2452,7 +2500,7 @@ def _instrument(torch, eng):
         out = decode(tok, cache)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        steps.append((cache.kv["len"], ev))
+        steps.append((cache.length, ev))
         return out
 
     def timed(fn, into):
@@ -2522,24 +2570,120 @@ def host_us_per_op(torch, device, n=2000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def run_lm_serve_path(torch, cfg, device="cuda"):
-    """Phase 16: ``ServeEngine`` over ``cfg`` on ``device`` with the default
-    overlapped tuner (see the module docstring). Returns the report and the
-    kernels' launches on the serving waves.
+def _no_drops(cfg):
+    """``cfg`` with an MoE capacity factor at which no expert drops a token
+    (decode against forward: drops differ between the two), else as is.
+    The reference's check sets 16, which guarantees it only where
+    ``n_experts / top_k`` <= 16: an expert holds ``cf * t * k / E`` slots
+    and may be picked by all t tokens. deepseek-v2's 160 / 6 needs 26.7
+    (at 16 its forward of 12 tokens has 7 slots an expert and drops
+    tokens that the one-token steps keep), so the factor is the larger of
+    16 and E / k."""
+    import dataclasses
 
-    Card against CPU: float32 on both sides (TF32 off), the same weights and
-    tokens. The two sides sum the same float32 products in other orders
-    (cuBLAS's blocked and split sums against the CPU's), which moves a dot
-    product of length K by about sqrt(K) ulps of its terms: about 1e-5 on
-    logits of unit scale at K = 11008. ``LM_CPU_TOL`` (1e-3, relative and
-    absolute) is two orders above that and two below the gaps between the
-    top logits that greedy decoding reads."""
+    if cfg.moe is None:
+        return cfg
+    factor = max(MOE_FWD_CF, math.ceil(cfg.moe.n_experts / cfg.moe.top_k))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(factor)))
+
+
+def _nbytes(tree) -> int:
+    return sum(_nbytes(v) if isinstance(v, dict) else
+               v.numel() * v.element_size() for v in tree.values())
+
+
+class _Routes:
+    """Record the top-k experts of every call of the MoE router
+    (``repro_torch.models.moe._router``) while it is entered: a probe of
+    ``decode_vs_forward`` only."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig = moe, moe._router
+
+        def router(*args):
+            top_p, top_i = self.orig(*args)
+            self.seen.append(top_i)
+            return top_p, top_i
+
+        moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
+def _forward_drops(routes, cfg, t: int) -> int:
+    """(token, k) past an expert's capacity in ``moe_dense`` over t
+    tokens, from each layer's recorded top-k (``_Routes``)."""
+    m = cfg.moe
+    cap = max(int(m.capacity_factor * t * m.top_k / m.n_experts), 1)
+    return sum(int((np.bincount(r.reshape(-1).cpu().numpy(),
+                                minlength=m.n_experts) - cap).clip(0).sum())
+               for r in routes)
+
+
+def decode_vs_forward(torch, weights, cfg, toks, device):
+    """``tests/test_models_smoke.py``'s check: ``LM_FWD`` decode steps
+    against ``forward_lm`` of the same tokens, logits within ``LM_FWD_TOL``
+    and argmax agreement of at least ``LM_FWD_AGREE``. For an MoE config
+    (``cfg`` from ``_no_drops``) also the routes: how many (token, layer)
+    pick another expert set in the forward than in the steps, and how many
+    (token, k) the forward drops past an expert's capacity."""
+    from repro_torch.models import decode_step, forward_lm, init_cache
+
+    tokens = _lm_tokens(torch, toks[0], device)
+    with _Routes() as dec:
+        cache = init_cache(cfg, 1, LM_MAX_LEN, device=device)
+        stepped = []
+        for i in range(LM_FWD):
+            lg, cache = decode_step(weights, cfg, tokens[:, i:i + 1], cache)
+            stepped.append(lg[:, 0].float())
+        stepped = torch.stack(stepped, 1)
+    with _Routes() as fwd:
+        full = forward_lm(weights, cfg, {"tokens": tokens}).float()
+    excess, spread = _close_logits(stepped, full, LM_FWD_TOL)
+    agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
+    out = {"tokens": LM_FWD, "max_abs_diff": spread, "tol": LM_FWD_TOL,
+           "argmax_agree": agree, "agree_min": LM_FWD_AGREE,
+           "ok": excess <= 0 and agree >= LM_FWD_AGREE}
+    if cfg.moe is None:
+        return out
+    n = cfg.n_layers
+    per_layer = [torch.cat(dec.seen[layer::n], dim=1) for layer in range(n)]
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(per_layer, fwd.seen))
+    out.update(capacity_factor=cfg.moe.capacity_factor,
+               forward_drops=_forward_drops(fwd.seen, cfg, LM_FWD),
+               routes_differing=flips, routes=LM_FWD * n)
+    return out
+
+
+def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
+                      tag="lm"):
+    """Phase 16 (and 17a): ``ServeEngine`` over ``cfg`` on ``device`` with
+    the default overlapped tuner (see the module docstring). Returns the
+    report and the kernels' launches on the serving waves.
+
+    Card against CPU: float32 on both sides (TF32 off), the same weights
+    (cast to float32 once, by ``compute_params``) and tokens, at depth
+    ``cpu_layers``. The two sides sum the same float32 products in other
+    orders (cuBLAS's blocked and split sums against the CPU's), which moves
+    a dot product of length K by about sqrt(K) ulps of its terms: about
+    1e-5 on logits of unit scale at K = 11008. ``LM_CPU_TOL`` (1e-3,
+    relative and absolute) is two orders above that and two below the gaps
+    between the top logits that greedy decoding reads."""
     import dataclasses
 
     from repro_torch.kernels import ops
     from repro_torch.models import (
+        compute_params,
         decode_step,
-        forward_lm,
         init_cache,
         init_params,
     )
@@ -2555,16 +2699,14 @@ def run_lm_serve_path(torch, cfg, device="cuda"):
     params = init_params(cfg, 0, device=device)
     torch.cuda.synchronize()
     rep["init_s"] = time.perf_counter() - t0
-    nbytes = lambda tree: sum(  # noqa: E731
-        nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
-        for v in tree.values())
-    rep["param_bytes"] = nbytes(params)
+    rep["init_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rep["param_bytes"] = _nbytes(params)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device=device)
     torch.cuda.synchronize()
     rep["engine_s"] = time.perf_counter() - t0
-    rep["weight_bytes"] = nbytes(eng.params)
-    print(f"lm: {cfg.name} {cfg.n_layers} layers, {rep['n_params']} "
+    rep["weight_bytes"] = _nbytes(eng.params)
+    print(f"{tag}: {cfg.name} {cfg.n_layers} layers, {rep['n_params']} "
           f"parameters, {rep['param_bytes']} bytes stored, "
           f"{rep['weight_bytes']} as the engine reads them; init "
           f"{rep['init_s']:.2f} s, engine {rep['engine_s']:.2f} s; "
@@ -2572,9 +2714,9 @@ def run_lm_serve_path(torch, cfg, device="cuda"):
           flush=True)
     tuner = eng.prefix_index.tuner
     require(tuner is not None and tuner.cfg.scheduler.async_build,
-            "lm: the engine's default tuner is not the overlapped one")
+            f"{tag}: the engine's default tuner is not the overlapped one")
     require(set(eng.prefix_index.index.shard_locate()) == {"fused"},
-            "lm: the prefix index does not locate with the fused kernels")
+            f"{tag}: the prefix index does not locate with the fused kernels")
     steps, match_s, admit_s = _instrument(torch, eng)
 
     # serve_lm.py's waves, then the timed wave; counts reset just before
@@ -2605,17 +2747,20 @@ def run_lm_serve_path(torch, cfg, device="cuda"):
     launches = ops.launch_counts()
     torch.cuda.synchronize()
     timed_out = [r.out for r in done]
-    print(f"lm: K launches on the serving waves {launches}", flush=True)
+    print(f"{tag}: K launches on the serving waves {launches}", flush=True)
     require(counts_after == [(1, 1), (4, 1)],
-            f"lm: hits and misses after the waves {counts_after}, "
+            f"{tag}: hits and misses after the waves {counts_after}, "
             f"expected [(1, 1), (4, 1)]")
-    require(launches["fused_locate"] > 0 and launches["bmat_rank"] > 0,
-            f"lm: K1 or K2 did not launch on the serving path {launches}")
-    require(eng.prefix_index.hits == 8 and eng.prefix_index.misses == 5,
-            "lm: the timed wave's second sends did not all hit")
+    require(launches["fused_locate"] > 0 and launches["bmat_rank"] > 0
+            and launches["gmm_estep"] > 0,
+            f"{tag}: K1, K2 or K3 did not launch on the serving path "
+            f"{launches}")
+    require((eng.prefix_index.hits, eng.prefix_index.misses)
+            == (4 + LM_TIMED_PROMPTS, 1 + LM_TIMED_PROMPTS),
+            f"{tag}: the timed wave's second sends did not all hit")
     for i in range(LM_TIMED_PROMPTS):
         require(timed_out[i + LM_TIMED_PROMPTS] == timed_out[i],
-                f"lm: timed prompt {i}: the hit's tokens differ from the "
+                f"{tag}: timed prompt {i}: the hit's tokens differ from the "
                 f"miss's")
 
     per_req = _split_steps(steps, timed)
@@ -2665,89 +2810,367 @@ def run_lm_serve_path(torch, cfg, device="cuda"):
     rep["step_back_to_back_ms"] = wall
     rep["threads"] = threading.active_count()
     # a step reads every weight but the embedding table (one row of it)
-    # and the K/V written so far: at the timed wave's mean position
+    # and the cache written so far: at the timed wave's mean position
     emb = eng.params["embed"]
-    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
-    step_bytes = (rep["weight_bytes"] - emb.numel() * emb.element_size()
-                  + cfg.d_model * emb.element_size()
-                  + kv_row * (LM_TIMED_LEN + LM_TIMED_NEW // 2))
+    el = emb.element_size()
+    row = (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim if cfg.mla else
+           2 * cfg.n_kv_heads * cfg.head_dim)
+    cache_bytes = (cfg.n_layers * row * el
+                   * (LM_TIMED_LEN + LM_TIMED_NEW // 2))
+    step_bytes = (rep["weight_bytes"] - emb.numel() * el
+                  + cfg.d_model * el + cache_bytes)
     rep["bound_bytes"] = step_bytes
     rep["bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    if cfg.moe is not None:
+        # the dense dispatch reads every expert; the routed ones alone
+        experts = _nbytes({k: v for k, v in
+                           eng.params["layers"]["blk0_attn"].items()
+                           if k in ("we1", "we2", "we3")})
+        routed = step_bytes - experts * (1 - cfg.moe.top_k
+                                         / cfg.moe.n_experts)
+        rep["expert_bytes"] = experts
+        rep["bound_routed_bytes"] = routed
+        rep["bound_routed_ms"] = routed / HBM_BYTES_PER_S * 1e3
     del cache, state
 
     # every request of serve_lm.py's waves against a fresh engine's cold run
     for wave, out in zip(waves, outs):
         for p, o in zip(wave, out):
             require(o == _cold_tokens(cfg, eng.params, p, LM_NEW, device),
-                    "lm: a request's tokens differ from its cold run")
+                    f"{tag}: a request's tokens differ from its cold run")
 
-    # decode against forward (tests/test_models_smoke.py's check)
+    # decode against forward (tests/test_models_smoke.py's check, with the
+    # capacity factor it sets for MoE: no drops on either side)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, LM_FWD))
-    full = forward_lm(eng.params, cfg, {"tokens": _lm_tokens(
-        torch, toks[0], device)}).float()
-    cache = init_cache(cfg, 1, LM_MAX_LEN, device=device)
-    stepped = []
-    for i in range(LM_FWD):
-        lg, cache = decode_step(eng.params, cfg,
-                                _lm_tokens(torch, toks[0, i:i + 1], device),
-                                cache)
-        stepped.append(lg[:, 0].float())
-    stepped = torch.stack(stepped, 1)
-    excess, spread = _close_logits(stepped, full, LM_FWD_TOL)
-    agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
-    rep["decode_vs_forward"] = {"tokens": LM_FWD, "max_abs_diff": spread,
-                                "tol": LM_FWD_TOL, "argmax_agree": agree}
-    require(excess <= 0 and agree >= LM_FWD_AGREE,
-            f"lm: decode and forward disagree (max |diff| {spread}, "
-            f"argmax agreement {agree})")
-    del full, cache, stepped
+    dvf = decode_vs_forward(torch, eng.params, _no_drops(cfg), toks, device)
+    rep["decode_vs_forward"] = dvf
+    require(dvf["ok"], f"{tag}: decode and forward disagree "
+                       f"({json.dumps(dvf)})")
+    if cfg.moe is not None and dvf["capacity_factor"] != MOE_FWD_CF:
+        # the reference's own factor, for the record: here it drops
+        cf16 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_FWD_CF))
+        rep["decode_vs_forward_cf16"] = decode_vs_forward(
+            torch, eng.params, cf16, toks, device)
     eng.close()
     # the timing wrappers hold the engine in a reference cycle
     del eng, tuner, emb, steps
     gc.collect()
 
-    # the card against the CPU at depth LM_CPU_LAYERS, float32
-    cfg2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
+    # the card against the CPU at depth cpu_layers, float32
+    cfg2 = dataclasses.replace(cfg, n_layers=cpu_layers,
                                compute_dtype="float32")
     p2 = {k: v for k, v in params.items() if k != "layers"}
-    p2["layers"] = {"blk0_attn": {k: v[:LM_CPU_LAYERS] for k, v in
+    p2["layers"] = {"blk0_attn": {k: v[:cpu_layers] for k, v in
                                   params["layers"]["blk0_attn"].items()}}
     host = {k: v.cpu() for k, v in p2.items() if k != "layers"}
     host["layers"] = {"blk0_attn": {k: v.cpu() for k, v in
                                     p2["layers"]["blk0_attn"].items()}}
+    p2 = compute_params(p2, cfg2, device)
+    host = compute_params(host, cfg2, "cpu")
     require(not torch.backends.cuda.matmul.allow_tf32,
-            "lm: TF32 matmuls are on; float32 on the card must be float32")
+            f"{tag}: TF32 matmuls are on; float32 on the card must be "
+            f"float32")
     caches = [init_cache(cfg2, 1, LM_CPU_TOKENS, device=d)
               for d in (device, "cpu")]
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, 4)
     tok_dev = [_lm_tokens(torch, prompt[:1], d) for d in (device, "cpu")]
     worst, spread, gen = -1.0, 0.0, []
+    t0 = time.perf_counter()
     for i in range(LM_CPU_TOKENS):
         lg_c, caches[0] = decode_step(p2, cfg2, tok_dev[0], caches[0])
         lg_h, caches[1] = decode_step(host, cfg2, tok_dev[1], caches[1])
         e, s = _close_logits(lg_c.cpu(), lg_h, LM_CPU_TOL)
         worst, spread = max(worst, e), max(spread, s)
         pick_c, pick_h = int(lg_c.argmax()), int(lg_h.argmax())
-        require(pick_c == pick_h, f"lm: card and CPU greedy tokens differ "
-                                  f"at step {i}: {pick_c} != {pick_h}")
+        require(pick_c == pick_h, f"{tag}: card and CPU greedy tokens "
+                                  f"differ at step {i}: {pick_c} != {pick_h}")
         nxt = [int(prompt[i + 1])] if i + 1 < len(prompt) else [pick_c]
         gen.append(pick_c)
         tok_dev = [_lm_tokens(torch, nxt, d) for d in (device, "cpu")]
-    rep["card_vs_cpu"] = {"n_layers": LM_CPU_LAYERS, "steps": LM_CPU_TOKENS,
+    rep["card_vs_cpu"] = {"n_layers": cpu_layers, "steps": LM_CPU_TOKENS,
                           "max_abs_diff": spread, "tol": LM_CPU_TOL,
-                          "greedy": gen}
-    require(worst <= 0, f"lm: card and CPU logits differ by {spread} at "
-                        f"depth {LM_CPU_LAYERS}")
+                          "greedy": gen, "s": time.perf_counter() - t0}
+    require(worst <= 0, f"{tag}: card and CPU logits differ by {spread} at "
+                        f"depth {cpu_layers}")
     rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     del p2, host, caches, params, lg_c, lg_h
     gc.collect()
     torch.cuda.empty_cache()
     rep["left_bytes"] = torch.cuda.memory_allocated() - base
     require(rep["left_bytes"] < LM_LEFT_BYTES,
-            f"lm: {rep['left_bytes']} bytes still allocated after tear-down")
+            f"{tag}: {rep['left_bytes']} bytes still allocated after "
+            f"tear-down")
     rep["hits_misses"] = counts_after
-    print("lm serve " + json.dumps(rep), flush=True)
+    print(f"{tag} serve " + json.dumps(rep), flush=True)
     return rep, launches
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA serving, ragged dispatch and K6 (phase 17)
+# ---------------------------------------------------------------------------
+
+
+def run_moe_ragged(torch, device="cuda"):
+    """Phase 17b: ``forward_lm`` of ``MOE_RAGGED_ARCH`` at full width and
+    depth ``MOE_RAGGED_LAYERS`` on a (2, 256) batch with ragged dispatch
+    (K6) and with dense dispatch, in float32 and in bfloat16 compute, both
+    at a capacity factor where the dense dispatch drops nothing, so the
+    two are one function: the larger of ``MOE_RAGGED_CF``
+    (``test_moe_ragged_matches_dense``'s 8) and E / k (16 for 128 experts
+    over top-8; at 8 an expert holds 256 slots, and 512 tokens may pick
+    it: that reading, with its drops, is reported beside). Float32: logits
+    within ``MOE_RAGGED_TOL`` and the same argmax at every position;
+    bfloat16: max |diff| and argmax agreement reported. Returns the report
+    and the launches of the forwards."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import compute_params, forward_lm, init_params
+
+    full = get_config(MOE_RAGGED_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_RAGGED_LAYERS)
+    cf = float(max(MOE_RAGGED_CF, math.ceil(cfg.moe.n_experts
+                                            / cfg.moe.top_k)))
+    t = MOE_RAGGED_BATCH[0] * MOE_RAGGED_BATCH[1]
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "batch": list(MOE_RAGGED_BATCH),
+           "capacity_factor": cf}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=device)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, MOE_RAGGED_BATCH)
+    batch = {"tokens": torch.as_tensor(toks, device=device)}
+    ops.reset_launch_counts()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        moe = dataclasses.replace(c.moe, capacity_factor=cf)
+        c_r = dataclasses.replace(c, moe=dataclasses.replace(
+            moe, dispatch="ragged"))
+        c_d = dataclasses.replace(c, moe=moe)
+        w = compute_params(params, c, device)
+        before = ops.launch_counts()["ragged_dot"]
+        lr = forward_lm(w, c_r, batch).float()
+        k6 = ops.launch_counts()["ragged_dot"] - before
+        with _Routes() as routes:
+            ld = forward_lm(w, c_d, batch).float()
+        torch.cuda.synchronize()
+        require(k6 == 3 * cfg.n_layers,
+                f"moe ragged: K6 launched {k6} times in a {dtype} forward, "
+                f"expected {3 * cfg.n_layers}")
+        require(bool(torch.isfinite(lr).all() and torch.isfinite(ld).all()),
+                f"moe ragged: non-finite logits at {dtype}")
+        excess, spread = _close_logits(lr, ld, MOE_RAGGED_TOL)
+        agree = float((lr.argmax(-1) == ld.argmax(-1)).float().mean())
+        drops = _forward_drops(routes.seen, c_d, t)
+        rep[dtype] = {"max_abs_diff": spread, "argmax_agree": agree,
+                      "k6_launches": k6, "dense_drops": drops}
+        require(drops == 0, f"moe ragged: the dense dispatch dropped "
+                            f"{drops} (token, k) at capacity factor {cf}")
+        if dtype == "float32":
+            rep[dtype]["tol"] = MOE_RAGGED_TOL
+            require(excess <= 0 and agree == 1.0,
+                    f"moe ragged: ragged and dense float32 logits differ "
+                    f"(max |diff| {spread}, argmax agreement {agree})")
+        if dtype == "float32" and cf != MOE_RAGGED_CF:
+            # the test's own factor, for the record: here it drops
+            c_8 = dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=MOE_RAGGED_CF))
+            with _Routes() as routes:
+                l8 = forward_lm(w, c_8, batch).float()
+            _, spread8 = _close_logits(lr, l8, MOE_RAGGED_TOL)
+            rep[dtype][f"cf{MOE_RAGGED_CF:g}"] = {
+                "max_abs_diff": spread8,
+                "argmax_agree": float((lr.argmax(-1) == l8.argmax(-1))
+                                      .float().mean()),
+                "dense_drops": _forward_drops(routes.seen, c_8, t)}
+            del l8
+        runs[dtype] = (w, c_r, c_d)
+        del lr, ld
+    launches = ops.launch_counts()
+    # each forward's time between CUDA events, after the counts are read
+    for dtype, (w, c_r, c_d) in runs.items():
+        rep[dtype]["forward_ms"] = {
+            name: call_ms(torch, lambda: forward_lm(w, cc, batch), 3)
+            for name, cc in (("ragged", c_r), ("dense", c_d))}
+    del runs, w
+    torch.cuda.synchronize()
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["left_bytes"] = torch.cuda.memory_allocated() - base
+    require(rep["left_bytes"] < LM_LEFT_BYTES,
+            f"moe ragged: {rep['left_bytes']} bytes still allocated")
+    print("moe ragged " + json.dumps(rep), flush=True)
+    return rep, launches
+
+
+def k6_inputs(torch, m, k, n, g, dtype, seed, empty=False, device="cuda"):
+    """K6 inputs of one shape: lhs [M, K] and rhs [G, K, N] normals (rhs
+    fan-in scaled) and group sizes from a uniform routing of the M rows
+    (``empty``: every third group empty and 100 rows past the sum)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if empty:
+        w = torch.rand(g, generator=gen, device=device)
+        w[::3] = 0
+        sizes = (w / w.sum() * (m - 100)).floor().to(torch.int32)
+    else:
+        e = torch.randint(0, g, (m,), generator=gen, device=device)
+        sizes = torch.zeros(g, dtype=torch.int32, device=device).scatter_add_(
+            0, e, torch.ones_like(e, dtype=torch.int32))
+    lhs = torch.randn(m, k, generator=gen, device=device).to(dtype)
+    rhs = (torch.randn(g, k, n, generator=gen, device=device)
+           / k ** 0.5).to(dtype)
+    return lhs, rhs, sizes
+
+
+def _grouped_mm(torch, lhs, rhs, sizes):
+    """``torch.nn.functional.grouped_mm`` on K6's inputs (the yardstick
+    only), or the reason it does not run here."""
+    import torch.nn.functional as F
+
+    fn = getattr(F, "grouped_mm", None)
+    if fn is None:
+        return None, "torch.nn.functional.grouped_mm is missing"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    # the grouped kernel may want the rhs's last two dims column-major
+    rhs_t = rhs.transpose(-2, -1).contiguous().transpose(-2, -1)
+    err = None
+    for b in (rhs, rhs_t):
+        try:
+            fn(lhs, b, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: fn(lhs, b, offs=offs)), None
+        except Exception as e:  # noqa: BLE001 — the yardstick only
+            err = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return None, err
+
+
+def k6_bound(torch, lhs, rhs, sizes):
+    """The larger of the bytes K6 must move (lhs, the non-empty groups'
+    rhs and out, once each, over 3.35 TB/s) and 2 M K N operations over
+    the peak for the input type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
+    float32, which the kernel computes without TF32)."""
+    m, k = lhs.shape
+    g, _, n = rhs.shape
+    el = lhs.element_size()
+    nonempty = int((sizes > 0).sum())
+    n_bytes = (m * k + nonempty * k * n + m * n) * el
+    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n / rate * 1e3
+    return n_bytes, ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+
+
+def compare_k6(torch, device="cuda"):
+    """Phase 17c: K6 against ``ragged_dot_plain`` on the card at the main
+    path's shapes (``K6_SHAPES``), a case with empty groups and rows past
+    the sum, and a shape off the 16-byte vector path, in float32 and
+    bfloat16; then each case's device ms, call ms, plain ms,
+    ``F.grouped_mm``'s device ms where it runs, and the bound. Float32 is
+    held within ``K6_F32_TOL`` (relative and absolute: its fmaf chain
+    against cuBLAS's blocked sums of up to 5120 products), bfloat16 within
+    one bf16 ulp of the plain value plus that float32 bound (each rounds
+    its own float32 sum once; the tensor cores sum in another order, so
+    near zero, where an ulp is small, the sums' difference can pass it; the
+    count of outputs beyond one ulp is reported). Returns (max abs error,
+    the headline timing with the other cases as variants)."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+    from repro_torch.kernels.ref import ragged_dot_plain
+
+    cases = {name: (shape, False) for name, shape in K6_SHAPES.items()}
+    cases.update(empty=((1000, 256, 192, 40), True),
+                 odd=((333, 100, 70, 7), False))
+    err, timings = 0.0, {}
+    for name, ((m, k, n, g), empty) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"{name} {str(dtype)[6:]}"
+            lhs, rhs, sizes = k6_inputs(torch, m, k, n, g, dtype, 17,
+                                        empty=empty, device=device)
+            got = ragged_dot(lhs, rhs, sizes)
+            want = ragged_dot_plain(lhs, rhs, sizes)
+            torch.cuda.synchronize()
+            total = int(sizes.sum())
+            require(not bool(got[total:].any()),
+                    f"K6 ({label}): rows past the sum are not zero")
+            w = want.float()
+            diff = (got.float() - w).abs()
+            # the float32 sums differ in order only (the tensor cores'
+            # against cuBLAS's); bf16 adds one rounding of each
+            sums_tol = K6_F32_TOL * (1 + w.abs())
+            over_ulp = None
+            if dtype == torch.float32:
+                bad = diff > sums_tol
+            else:
+                past = diff - BF16_ULP * w.abs()
+                over_ulp = [int((past > 0).sum()), float(past.max())]
+                bad = past > sums_tol
+            e = float(diff.max())
+            require(not bool(bad.any()),
+                    f"K6 ({label}): {int(bad.sum())} outputs off the plain "
+                    f"version (max abs error {e})")
+            err = max(err, e)
+            if name == "odd":
+                continue
+            lib, why = _grouped_mm(torch, lhs, rhs, sizes)
+            n_bytes, bound = k6_bound(torch, lhs, rhs, sizes)
+            timings[label] = dict(
+                ms=device_ms(torch, lambda: ragged_dot(lhs, rhs, sizes), 20),
+                call_ms=call_ms(torch, lambda: ragged_dot(lhs, rhs, sizes),
+                                20),
+                plain_ms=device_ms(
+                    torch, lambda: ragged_dot_plain(lhs, rhs, sizes), 3),
+                library_ms=device_ms(torch, lib, 20) if lib else None,
+                bytes=n_bytes, bound=bound, max_abs_err=e,
+                beyond_one_bf16_ulp=over_ulp,  # [count, largest excess]
+                shape=dict(m=m, k=k, n=n, g=g, rows=total,
+                           nonempty=int((sizes > 0).sum())),
+            )
+            if why:
+                timings[label]["library_error"] = why
+            print(f"K6 {label}: {json.dumps(timings[label])}", flush=True)
+            del lhs, rhs, sizes, got, want
+    print(f"kernels[ragged_dot]: K6 max abs error {err:.3g} over "
+          f"{2 * len(cases)} cases", flush=True)
+    head = dict(timings[K6_HEADLINE])
+    head["variants"] = {k: v for k, v in timings.items()
+                        if k != K6_HEADLINE}
+    return err, head
+
+
+def run_moe_path(torch, device="cuda"):
+    """Phase 17: 17a serves ``MOE_SERVE_ARCH`` at full width and depth
+    ``MOE_SERVE_LAYERS`` through ``ServeEngine`` (``run_lm_serve_path``);
+    17b runs the ragged dispatch against the dense one
+    (``run_moe_ragged``); 17c holds K6 to its plain version and times it
+    (``compare_k6``). Returns (reports, launches by path, K6's error and
+    timing)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_SERVE_ARCH),
+                              n_layers=MOE_SERVE_LAYERS)
+    base = torch.cuda.memory_allocated()
+    serve_rep, serve_launches = run_lm_serve_path(
+        torch, cfg, device, cpu_layers=MOE_CPU_LAYERS, tag="moe")
+    ragged_rep, ragged_launches = run_moe_ragged(torch, device)
+    require(ragged_launches["ragged_dot"] > 0,
+            "moe: K6 did not launch on the ragged path")
+    err, timing = compare_k6(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    require(left < LM_LEFT_BYTES,
+            f"moe: {left} bytes still allocated after phase 17")
+    return ({"serve": serve_rep, "ragged": ragged_rep},
+            {"moe_serve": serve_launches, "moe_ragged": ragged_launches},
+            err, timing)
 
 
 def main() -> int:
@@ -2872,6 +3295,8 @@ def main() -> int:
     _, b_launches = run_baselines(torch, loaded[::BASELINE_EVERY], unloaded)
     _, p_launches = run_pipeline(torch)
     _, lm_launches = run_lm_serve_path(torch, get_config(LM_ARCH))
+    _, moe_launches, k6_err, k6_timing = run_moe_path(torch)
+    timing["ragged_dot"] = k6_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
           f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
@@ -2881,6 +3306,7 @@ def main() -> int:
         "gmm_estep": (K3_SOURCE, K3_REPLACES, k3_err),
         "tile_search": (K4_SOURCE, K4_REPLACES, max(a[0] for a in api)),
         "spline_lookup": (K5_SOURCE, K5_REPLACES, max(a[1] for a in api)),
+        "ragged_dot": (K6_SOURCE, K6_REPLACES, k6_err),
     }
     paths = {"uplif": launches, "router": r_launches,
              "uplif_range": range_launches, "router_range": rr_launches,
@@ -2889,7 +3315,7 @@ def main() -> int:
              "forecaster_k16": fc_launches, "gateway": g_launches,
              "async_maintenance": a_launches, "agent": ag_launches,
              "baselines": b_launches, "pipeline": p_launches,
-             "lm_serve": lm_launches}
+             "lm_serve": lm_launches, **moe_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
@@ -2903,7 +3329,8 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
-                                 "library_cold_ms", "shape", "variants")
+                                 "library_cold_ms", "library_error", "shape",
+                                 "variants")
                if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

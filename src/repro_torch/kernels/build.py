@@ -30,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
-           "spline_lookup.cu", "tile_search.cu")
+           "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu")
 HEADERS = ("key_delta.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -56,6 +56,8 @@ SIGNATURES = {
     # pass_hi, stream
     "tile_search_launch": [_P] * 5 + [_I] + [ctypes.c_longlong] * 2
                           + [_I, _I, _P],
+    # lhs, rhs, group_sizes, out, m, k, n, g, bf16, vec, stream
+    "ragged_dot_launch": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

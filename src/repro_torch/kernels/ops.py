@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import bmat_rank as _rank
 from repro_torch.kernels import gmm_estep as _estep
+from repro_torch.kernels import ragged_dot as _ragged
 from repro_torch.kernels import spline_lookup as _locate
 from repro_torch.kernels import tile_search as _tiles
 from repro_torch.kernels.tile_search import Q_BLK, TILE
@@ -223,6 +224,7 @@ def launch_counts() -> dict:
         "gmm_estep": _estep.gmm_estep.launches,
         "tile_search": _tiles.tile_search.launches,
         "spline_lookup": _locate.spline_lookup.launches,
+        "ragged_dot": _ragged.ragged_dot.launches,
     }
 
 
@@ -232,3 +234,4 @@ def reset_launch_counts() -> None:
     _estep.gmm_estep.launches = 0
     _tiles.tile_search.launches = 0
     _locate.spline_lookup.launches = 0
+    _ragged.ragged_dot.launches = 0

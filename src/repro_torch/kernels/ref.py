@@ -9,6 +9,8 @@ int64 keys directly, on the CPU and in the CUDA kernels alike.
 ``gmm_estep_plain`` is the twin of ``ref.gmm_estep_ref``: K3's plain
 version, which the CPU path and the tests run. ``fma_f32`` is the
 single-rounding multiply-add of K1's and K5's plain versions.
+``ragged_dot_plain`` is K6's plain version, the grouped matrix product of
+``jax.lax.ragged_dot`` (the reference has no Pallas kernel for it).
 """
 from __future__ import annotations
 
@@ -56,3 +58,26 @@ def gmm_estep_plain(
     m = logp.max(dim=1, keepdim=True).values
     e = torch.exp(logp - m)
     return e / e.sum(dim=1, keepdim=True)
+
+
+def ragged_dot_plain(
+    lhs: torch.Tensor,          # [M, K], float32 or bfloat16
+    rhs: torch.Tensor,          # [G, K, N], lhs's dtype
+    group_sizes: torch.Tensor,  # int32[G]
+) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: the rows of group ``g`` (consecutive, in
+    group order) multiply ``rhs[g]``; rows past ``sum(group_sizes)`` are
+    zero, and a group that runs past row M is cut there (a negative size
+    counts as 0). float32 accumulation, output in lhs's dtype. K6's plain
+    version: it reads the group sizes on the host, so it syncs a device
+    tensor on every call; the CPU path and the tests run it."""
+    m = lhs.shape[0]
+    out = torch.zeros((m, rhs.shape[2]), dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), m)
+        if end > start:
+            out[start:end] = torch.matmul(lhs[start:end].float(),
+                                          rhs[g].float()).to(lhs.dtype)
+        start = end
+    return out

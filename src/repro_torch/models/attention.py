@@ -1,20 +1,21 @@
 """Attention (port of ``repro/models/attention.py``): GQA/MQA/MHA with an
-optional bias, local window and softcap, with and without a KV cache.
+optional bias, local window and softcap, and MLA (DeepSeek-V2 latent
+attention), with and without a cache.
 
 All functions take *flat* projection weights (d_model, n*head_dim), as the
 reference does. The arithmetic is the reference's own, op for op, in plain
 torch (see ``attention_core``); no library attention kernel replaces it,
 because none rounds the scale, the scores and the probabilities where the
-reference does. MLA and cross-attention come with their families' slices
-(``ROADMAP.md`` queue 1). The reference's sharding ``constrain`` hook has no
-counterpart on one card.
+reference does. Cross-attention comes with the encoder-decoder's slice
+(``ROADMAP.md`` queue 1). The reference's sharding ``constrain`` hook has
+no counterpart on one card.
 
-The cache differs from the reference in one way: its ``length`` is a host
-integer and new K/V are written into the cache's tensors in place (the
-reference's ``dynamic_update_slice`` returns new arrays). Copying the cache
-on every token would cost more than the step at full width. A caller that
-keeps a cache while another decodes from the same tensors must clone it
-(``ServeEngine`` does).
+The caches (``KVCache``, ``MLACache``) differ from the reference in one
+way: their ``length`` is a host integer and new entries are written into
+the cache's tensors in place (the reference's ``dynamic_update_slice``
+returns new arrays). Copying the cache on every token would cost more than
+the step at full width. A caller that keeps a cache while another decodes
+from the same tensors must clone it (``ServeEngine`` does).
 """
 from __future__ import annotations
 
@@ -182,3 +183,104 @@ def gqa(x, p, cfg, positions, cache: Optional[KVCache] = None,
     tables = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
                          cfg.rope_frac, x.dtype)
     return _gqa(x, p, cfg, tables, cache, window, causal)
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor     # (B, T, kv_lora) compressed latent
+    krope: torch.Tensor   # (B, T, rope_dim) shared rotary key
+    length: int           # tokens already in cache (a host integer)
+
+
+def mla_tables(cfg, positions, dtype):
+    """MLA's RoPE tables: over ``rope_head_dim``, all of it rotated (the
+    reference's ``rope`` at its default ``rope_frac`` of 1)."""
+    return rope_tables(positions, cfg.mla.rope_head_dim, cfg.rope_theta,
+                       1.0, dtype)
+
+
+def _mla_scale(qd: int) -> float:
+    """1 / sqrt(qd) as the reference takes it: the square root in float32,
+    its reciprocal in float32 (a float32 value, exact as a Python float)."""
+    return (1.0 / torch.tensor(float(qd)).sqrt()).item()
+
+
+def _mla(x, p, cfg, tables, cache: Optional[MLACache] = None):
+    """``mla`` with the RoPE tables already computed (one per forward)."""
+    m = cfg.mla
+    b, s, d = x.shape
+    cd = x.dtype
+    h = cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+
+    if m.q_lora_rank:
+        q = torch.matmul(torch.matmul(x, p["wq_a"].to(cd)), p["wq_b"].to(cd))
+    else:
+        q = torch.matmul(x, p["wq"].to(cd))
+    q = q.reshape(b, s, h, qd)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = apply_rope(q_rope, tables)
+
+    kv_a = torch.matmul(x, p["wkv_a"].to(cd))
+    ckv, k_rope_in = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope_in[:, :, None, :], tables)[:, :, 0, :]
+
+    if cache is not None:
+        # write at cache.length in place; attend over the written prefix
+        # (the reference masks the rest with NEG_INF: probability exactly 0)
+        start = cache.length
+        n = start + s
+        if n > cache.ckv.shape[1]:
+            raise ValueError(f"the cache holds {cache.ckv.shape[1]} "
+                             f"positions; {start} are written and {s} more "
+                             f"do not fit")
+        cache.ckv[:, start:n] = ckv
+        cache.krope[:, start:n] = k_rope
+        ckv, k_rope = cache.ckv[:, :n], cache.krope[:, :n]
+        new_cache = MLACache(cache.ckv, cache.krope, n)
+        offset = start
+    else:
+        new_cache = None
+        offset = 0
+
+    t = ckv.shape[1]
+    # reconstruct per-head K_nope and V from the latent
+    kv = torch.matmul(ckv.to(cd), p["wkv_b"].to(cd))
+    kv = kv.reshape(b, t, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    k_rope = k_rope.to(cd)
+    scale = _mla_scale(qd)
+
+    def mla_core(qn, qr, offset_rows: int):
+        """qn/qr: (b, sc, h, d) chunk; offset_rows: absolute first q row.
+        The scores are summed in the compute dtype, then scaled in
+        float32 (not GQA's scale rounded to the compute dtype)."""
+        sc = qn.shape[1]
+        s_nope = torch.einsum("bshd,bthd->bhst", qn, k_nope)
+        s_rope = torch.einsum("bshd,btd->bhst", qr, k_rope)
+        scores = (s_nope + s_rope).float() * scale
+        if sc > 1 or offset_rows + sc < t:  # else every key is visible
+            scores = scores + _causal_mask(sc, t, offset_rows, x.device)
+        probs = torch.softmax(scores, dim=-1).to(cd)
+        return torch.einsum("bhst,bthd->bshd", probs, v)
+
+    if cache is None and s >= CHUNK_THRESHOLD:
+        chunk = _pick_chunk(h, t)
+        if s % chunk:
+            raise ValueError(f"q length {s} is not a multiple of chunk "
+                             f"{chunk}")
+        out = torch.cat([mla_core(q_nope[:, c:c + chunk],
+                                  q_rope[:, c:c + chunk], c)
+                         for c in range(0, s, chunk)], dim=1)
+    else:
+        out = mla_core(q_nope, q_rope, offset)
+    out = out.reshape(b, s, h * m.v_head_dim)
+    return torch.matmul(out, p["wo"].to(cd)), new_cache
+
+
+def mla(x, p, cfg, positions, cache: Optional[MLACache] = None):
+    """Multi-head Latent Attention (DeepSeek-V2): KV compressed to a shared
+    latent c_kv (kv_lora_rank) + a single shared RoPE key; per-head K/V are
+    reconstructed from the latent. The cache stores only (c_kv, k_rope).
+    With a cache, x is the new chunk written at cache.length (in place).
+    Returns (out, new_cache)."""
+    return _mla(x, p, cfg, mla_tables(cfg, positions, x.dtype), cache)

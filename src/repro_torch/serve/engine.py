@@ -10,13 +10,14 @@ Lookups run batched once per admission wave; on CUDA they run the fused
 locate (K1) and BMAT rank (K2) kernels, and the tuner's forecaster its
 E-step (K3).
 
-``ServeEngine`` decodes greedily over the port's dense/VLM LM substrate
-(``repro_torch.models``), with two departures from the reference, both
-about the stored caches (``ROADMAP.md`` §3):
+``ServeEngine`` decodes greedily over the port's dense, VLM and MoE LM
+substrate (``repro_torch.models``; GQA or MLA caches), with two departures
+from the reference, both about the stored caches (``ROADMAP.md`` §3):
 
-- ``decode_step`` writes K/V into the cache's tensors in place, so the
-  engine clones a cache when it admits it and when a hit takes it: no
-  stored cache is ever a tensor that a decode writes to.
+- ``decode_step`` writes K/V (or MLA's latent and rotary key) into the
+  cache's tensors in place, so the engine clones a cache when it admits it
+  and when a hit takes it: no stored cache is ever a tensor that a decode
+  writes to.
 - A hit resumes at the matched prefix, ``n_blocks * every`` tokens, not
   at the stored prompt's full length, so a prompt that differs from the
   stored one after the last matched block decodes its own tokens (the

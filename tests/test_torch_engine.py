@@ -3,7 +3,9 @@ card where marked).
 
 Both engines serve the smoke ``deepseek-7b`` at float32 compute with the
 same weights (a numpy tree from a seed) and no tuner, unless a case says
-otherwise; greedy tokens are compared exactly.
+otherwise; the ``serve_lm`` waves, the aliasing case and the cold-hit case
+also serve the two MoE families (``qwen3-moe-30b-a3b``: GQA and MoE;
+``deepseek-v2-236b``: MLA and MoE). Greedy tokens are compared exactly.
 
 Two departures of the port are pinned here (``ROADMAP.md`` §3):
 - the port clones a decode cache when it admits it and when a hit takes it,
@@ -38,6 +40,8 @@ from tests.test_torch_models import numpy_params
 
 JOIN_S = 60.0
 MAX_LEN = 128
+# the dense model and the two MoE families (GQA + MoE, MLA + MoE)
+ARCHS = ["deepseek-7b", "qwen3-moe-30b-a3b", "deepseek-v2-236b"]
 
 
 @pytest.fixture(autouse=True)
@@ -56,12 +60,13 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def model():
+def model(request):
     """(JAX cfg, JAX params, port cfg, numpy params, jitted JAX steps by
-    cache size) of the smoke deepseek-7b at float32 compute."""
-    jc = dataclasses.replace(jsmoke("deepseek-7b"), compute_dtype="float32")
-    tc = dataclasses.replace(smoke_config("deepseek-7b"),
-                             compute_dtype="float32")
+    cache size) of a smoke config at float32 compute: deepseek-7b, or the
+    arch a test passes as the fixture's parameter."""
+    arch = getattr(request, "param", "deepseek-7b")
+    jc = dataclasses.replace(jsmoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
     npp = numpy_params(tc)
     return jc, jax.tree_util.tree_map(jnp.asarray, npp), tc, npp, {}
 
@@ -108,6 +113,7 @@ def _serve_lm_waves(vocab):
                              .astype(np.int32)]) for _ in range(3)]]
 
 
+@pytest.mark.parametrize("model", ARCHS, indirect=True)
 def test_serve_lm_waves_match_jax(model):
     """Hits and misses equal the reference's after each wave, and so do the
     tokens of every request whose hit resumes at the stored prompt's full
@@ -157,6 +163,7 @@ def test_prefix_cache_consistency_matches_jax(model):
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param(
     "cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("model", ARCHS, indirect=True)
 def test_stored_cache_is_never_written(model, device, request):
     """A (32 tokens) is admitted; B = A + 16 tokens hits A and extends it;
     C = A + 16 other tokens hits on A's two blocks and decodes its own tail
@@ -179,11 +186,13 @@ def test_stored_cache_is_never_written(model, device, request):
     jouts = [_serve(jeng, JRequest, [p], 6)[0][0] for p in (a, b)]
     assert outs[:2] == jouts
     caches = list(teng.prefix_index.slots.values())
-    ptrs = {x.data_ptr() for c in caches for x in (c.kv["k"], c.kv["v"])}
+    ptrs = {x.data_ptr() for c in caches for field in (c.kv, c.mla)
+            for k, x in (field or {}).items() if k != "len"}
     assert len(ptrs) == 2 * len(caches) == 8  # no two slots share a tensor
     teng.close()
 
 
+@pytest.mark.parametrize("model", ARCHS, indirect=True)
 def test_hit_past_the_matched_prefix_decodes_cold(model):
     """a: 50 tokens; b: a with tokens 48-49 changed, plus 6 more. After a is
     admitted, b hits a on 3 blocks (48 tokens). The reference resumes at

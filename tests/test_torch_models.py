@@ -48,9 +48,8 @@ F32_TOL = 1e-4
 BF16_TOL = 0.15
 BF16_AGREE = 0.9
 DENSE = ["deepseek-7b", "phi4-mini-3-8b", "granite-20b", "qwen1-5-110b"]
+MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]
 UNPORTED = {
-    "qwen3-moe-30b-a3b": "MoE",
-    "deepseek-v2-236b": "MLA",
     "recurrentgemma-2b": "RG-LRU",
     "rwkv6-1-6b": "RWKV-6",
     "whisper-small": "encoder-decoder",
@@ -100,6 +99,21 @@ def _same_greedy(a, b):
     for x, y in ((a, b), (b, a)):
         pick = x.argmax(-1)
         assert (y[rows, pick] >= y.max(-1) - BF16_TOL).all()
+
+
+def _close_routed(a, b, what=""):
+    """bfloat16 logits of an MoE model across the frameworks. A router
+    pick that is a near tie flips under a one-ulp difference of its input
+    (the frameworks round bf16 chains at other places), and the token then
+    takes another expert's output: its logits move by about 1 (1.5 in the
+    smoke deepseek-v2's step 8). So at least ``BF16_AGREE`` of the
+    positions are held within ``BF16_TOL``, and their greedy picks are
+    held equal up to ties (``_same_greedy``)."""
+    a, b = _np(a), _np(b)
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    ok = (np.abs(a - b) <= BF16_TOL * (1 + np.abs(b))).all(-1)
+    assert ok.mean() >= BF16_AGREE, (what, ok.mean())
+    _same_greedy(a[ok], b[ok])
 
 
 def _pair(x, dtype):
@@ -312,7 +326,7 @@ def test_chunked_self_attention_matches_jax(monkeypatch, causal, window):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"])
+@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
 def test_forward_lm_matches_jax(arch, dtype):
     jc, tc = _cfgs(arch, dtype)
     jp, tp = _params(arch)
@@ -322,24 +336,40 @@ def test_forward_lm_matches_jax(arch, dtype):
     extra = jc.vlm.n_image_tokens if jc.vlm is not None else 0
     assert b.shape == (2, 12 + extra, jc.vocab)
     assert b.dtype == DTYPES[dtype][1]
+    if dtype == "bfloat16" and jc.moe is not None:
+        _close_routed(a, b)
+        return
     _close(a, b, dtype)
     if dtype == "bfloat16":
         _same_greedy(a, b)
 
 
+def _no_drops(cfg):
+    """An MoE config at capacity factor 16, as the reference's
+    decode-consistency check sets it: capacity drops differ between a
+    teacher-forced forward and per-token decode, so none may happen."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"])
+@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
 def test_decode_matches_jax_and_forward(arch, dtype):
     """12 decode steps against the JAX ones, and against the port's own
     teacher-forced forward (the reference's decode-consistency check)."""
-    jc, tc = _cfgs(arch, dtype)
+    jc, tc = map(_no_drops, _cfgs(arch, dtype))
     jp, tp = _params(arch)
     toks = np.random.default_rng(17).integers(0, jc.vocab, (1, 12))
     toks = toks.astype(np.int32)
     jstep = jax.jit(lambda p, t, c: jdecode(p, jc, t, c))
     jcache = jinit_cache(jc, 1, 32)
     tcache = init_cache(tc, 1, 32, device="cpu")
-    assert tcache.kv["k"].shape == jcache.kv["k"].shape
+    field = "mla" if tc.mla is not None else "kv"
+    for k, v in getattr(jcache, field).items():
+        if k != "len":
+            assert getattr(tcache, field)[k].shape == v.shape
     js, ts = [], []
     for i in range(12):
         la, jcache = jstep(jp, jnp.asarray(toks[:, i:i + 1]), jcache)
@@ -348,14 +378,18 @@ def test_decode_matches_jax_and_forward(arch, dtype):
             tcache)
         js.append(np.asarray(la[:, 0], np.float32))
         ts.append(_np(lb[:, 0]))
-    assert tcache.kv["len"] == int(jcache.kv["len"]) == 12
+    assert tcache.length == int(getattr(jcache, field)["len"]) == 12
     js, ts = np.stack(js, 1), np.stack(ts, 1)
-    _close(js, ts, dtype, "decode against JAX decode")
+    if dtype == "bfloat16" and jc.moe is not None:
+        _close_routed(js, ts, "decode against JAX decode")
+    else:
+        _close(js, ts, dtype, "decode against JAX decode")
     full = _np(forward_lm(tp, tc, {"tokens": torch.from_numpy(
         toks.astype(np.int64))}))
     _close(full, ts, dtype, "decode against forward")
     if dtype == "bfloat16":
-        _same_greedy(js, ts)
+        if jc.moe is None:
+            _same_greedy(js, ts)
         agree = (full.argmax(-1) == ts.argmax(-1)).mean()
         assert agree >= BF16_AGREE, agree  # the reference's own bound
 
@@ -510,11 +544,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"])
+@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
 def test_forward_and_decode_on_cuda_match_cpu(cuda, arch):
     """float32 on the card (TF32 off, torch's default) against the CPU."""
     assert not torch.backends.cuda.matmul.allow_tf32
-    _, tc = _cfgs(arch, "float32")
+    _, tc = map(_no_drops, _cfgs(arch, "float32"))
     _, tp = _params(arch)
     gp = params_from_numpy(jax.tree_util.tree_map(
         lambda t: t.numpy(), tp), device=cuda)
