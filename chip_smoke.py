@@ -2921,8 +2921,10 @@ def run_moe_ragged(torch, device="cuda"):
     over top-8; at 8 an expert holds 256 slots, and 512 tokens may pick
     it: that reading, with its drops, is reported beside). Float32: logits
     within ``MOE_RAGGED_TOL`` and the same argmax at every position;
-    bfloat16: max |diff| and argmax agreement reported. Returns the report
-    and the launches of the forwards."""
+    bfloat16: max |diff| and argmax agreement reported. Every K6 launch of
+    the ragged forwards must take the TMA path. Each forward's ms between
+    CUDA events, and the ragged one's device ms with K6's part of it.
+    Returns the report and the launches of the forwards."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2953,8 +2955,12 @@ def run_moe_ragged(torch, device="cuda"):
         c_d = dataclasses.replace(c, moe=moe)
         w = compute_params(params, c, device)
         before = ops.launch_counts()["ragged_dot"]
+        paths = _k6_paths()
         lr = forward_lm(w, c_r, batch).float()
         k6 = ops.launch_counts()["ragged_dot"] - before
+        k6_paths = _k6_paths(paths)
+        require(k6_paths["simple"] == 0,
+                f"moe ragged: K6 left the TMA path at {dtype}: {k6_paths}")
         with _Routes() as routes:
             ld = forward_lm(w, c_d, batch).float()
         torch.cuda.synchronize()
@@ -2967,7 +2973,8 @@ def run_moe_ragged(torch, device="cuda"):
         agree = float((lr.argmax(-1) == ld.argmax(-1)).float().mean())
         drops = _forward_drops(routes.seen, c_d, t)
         rep[dtype] = {"max_abs_diff": spread, "argmax_agree": agree,
-                      "k6_launches": k6, "dense_drops": drops}
+                      "k6_launches": k6, "k6_paths": k6_paths,
+                      "dense_drops": drops}
         require(drops == 0, f"moe ragged: the dense dispatch dropped "
                             f"{drops} (token, k) at capacity factor {cf}")
         if dtype == "float32":
@@ -2991,11 +2998,14 @@ def run_moe_ragged(torch, device="cuda"):
         runs[dtype] = (w, c_r, c_d)
         del lr, ld
     launches = ops.launch_counts()
-    # each forward's time between CUDA events, after the counts are read
+    # each forward's time between CUDA events, and its device time with
+    # K6's part of it, after the counts are read
     for dtype, (w, c_r, c_d) in runs.items():
         rep[dtype]["forward_ms"] = {
             name: call_ms(torch, lambda: forward_lm(w, cc, batch), 3)
             for name, cc in (("ragged", c_r), ("dense", c_d))}
+        rep[dtype]["forward_device_ms"], rep[dtype]["k6_device_ms"] = (
+            _forward_device_ms(torch, lambda: forward_lm(w, c_r, batch)))
     del runs, w
     torch.cuda.synchronize()
     rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -3007,6 +3017,33 @@ def run_moe_ragged(torch, device="cuda"):
             f"moe ragged: {rep['left_bytes']} bytes still allocated")
     print("moe ragged " + json.dumps(rep), flush=True)
     return rep, launches
+
+
+def _forward_device_ms(torch, fn, iters: int = 3):
+    """Device ms per call of ``fn`` (a forward) from the profiler's device
+    events, and the part of it in K6's kernels; (None, None) where the
+    profiler saw no device event."""
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(iters):
+            fn()
+
+    dev = _device_events(torch, body)
+    if dev is None:
+        return None, None
+    total = _per_call_ms(dev, iters)
+    return total, total - _per_call_ms(dev, iters, skip=("ragged_dot",))
+
+
+def _k6_paths(since=None) -> dict:
+    """K6's launches by path (``ragged_dot.launches_by_path``), or those
+    made after the counts ``since``."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+
+    now = dict(ragged_dot.launches_by_path)
+    return now if since is None else {p: c - since[p] for p, c in now.items()}
 
 
 def k6_inputs(torch, m, k, n, g, dtype, seed, empty=False, device="cuda"):
@@ -3072,7 +3109,10 @@ def compare_k6(torch, device="cuda"):
     path's shapes (``K6_SHAPES``), a case with empty groups and rows past
     the sum, and a shape off the 16-byte vector path, in float32 and
     bfloat16; then each case's device ms, call ms, plain ms,
-    ``F.grouped_mm``'s device ms where it runs, and the bound. Float32 is
+    ``F.grouped_mm``'s device ms where it runs, and the bound, with the
+    kernel each case took (``path``: every ``K6_SHAPES`` entry and the
+    empty case must take TMA, the odd shape the simple kernel) and its
+    launches by path over the case's checks and timings. Float32 is
     held within ``K6_F32_TOL`` (relative and absolute: its fmaf chain
     against cuBLAS's blocked sums of up to 5120 products), bfloat16 within
     one bf16 ulp of the plain value plus that float32 bound (each rounds
@@ -3083,6 +3123,8 @@ def compare_k6(torch, device="cuda"):
     from repro_torch.kernels.ragged_dot import ragged_dot
     from repro_torch.kernels.ref import ragged_dot_plain
 
+    want_path = {name: "tma" for name in K6_SHAPES}
+    want_path.update(empty="tma", odd="simple")
     cases = {name: (shape, False) for name, shape in K6_SHAPES.items()}
     cases.update(empty=((1000, 256, 192, 40), True),
                  odd=((333, 100, 70, 7), False))
@@ -3092,7 +3134,12 @@ def compare_k6(torch, device="cuda"):
             label = f"{name} {str(dtype)[6:]}"
             lhs, rhs, sizes = k6_inputs(torch, m, k, n, g, dtype, 17,
                                         empty=empty, device=device)
+            paths = _k6_paths()
             got = ragged_dot(lhs, rhs, sizes)
+            took = [p for p, c in _k6_paths(paths).items() if c]
+            require(took == [want_path[name]],
+                    f"K6 ({label}): took the {took} path, expected "
+                    f"{want_path[name]}")
             want = ragged_dot_plain(lhs, rhs, sizes)
             torch.cuda.synchronize()
             total = int(sizes.sum())
@@ -3116,6 +3163,8 @@ def compare_k6(torch, device="cuda"):
                     f"version (max abs error {e})")
             err = max(err, e)
             if name == "odd":
+                print(f"K6 {label}: path {took[0]}, max abs error {e}",
+                      flush=True)
                 continue
             lib, why = _grouped_mm(torch, lhs, rhs, sizes)
             n_bytes, bound = k6_bound(torch, lhs, rhs, sizes)
@@ -3127,6 +3176,7 @@ def compare_k6(torch, device="cuda"):
                     torch, lambda: ragged_dot_plain(lhs, rhs, sizes), 3),
                 library_ms=device_ms(torch, lib, 20) if lib else None,
                 bytes=n_bytes, bound=bound, max_abs_err=e,
+                path=took[0], launches_by_path=_k6_paths(paths),
                 beyond_one_bf16_ulp=over_ulp,  # [count, largest excess]
                 shape=dict(m=m, k=k, n=n, g=g, rows=total,
                            nonempty=int((sizes > 0).sum())),
@@ -3330,7 +3380,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
                                  "library_cold_ms", "library_error", "shape",
-                                 "variants")
+                                 "path", "variants")
                if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

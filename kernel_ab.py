@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's K1 (fused locate), K2 (BMAT rank), K3 (GMM E-step), K4
-(tile search) and K5 (spline lookup) kernels of two source trees in turns
-on one GPU.
+(tile search), K5 (spline lookup) and K6 (grouped matrix product) kernels
+of two source trees in turns on one GPU.
 
     python3 kernel_ab.py OTHER_TREE [--out PATH]
 
@@ -47,12 +47,21 @@ line:
   * this tree only: ``k3_k16_ms``, ``k3_k33_ms``, ``k3_k64_ms`` and
     ``k2_fanout128_ms``, ``k2_fanout256_ms``;
   * ``floor_ms`` / ``floor_cold_ms``: one trivial launch (``add_`` on 4096
-    int64), warm and after the read flush.
+    int64), warm and after the read flush;
+  * ``k6_<shape>_<dtype>_ms`` and ``..._call_ms``: K6's device time per
+    launch and its time through the wrapper between CUDA events at
+    ``chip_smoke.K6_SHAPES`` and the empty-groups case, in float32 and
+    bfloat16, on ``chip_smoke.k6_inputs`` made on the card from seed 17 in
+    each timing process (the same inputs in every run); ``k6_paths``: the
+    launches by path where the tree counts them.
 
 Every run's outputs (K1's ``(j, start)``, K3's responsibilities on the
 forecaster's inputs and on the sweep, K2's ranks, K4's route entries, the
-tiled ranks, K5's positions at both shifts, and this tree's wide K3 and K2
-cases) must equal those of the first run that has them, bit for bit. The
+tiled ranks, K5's positions at both shifts, this tree's wide K3 and K2
+cases, and K6's float32 products, one fmaf chain per output in both trees)
+must equal those of the first run that has them, bit for bit; K6's
+bfloat16 products only those of the same tree (the two trees' tensor-core
+instructions sum in other orders). The
 summary goes to stdout and to ``--out`` (by default
 ``build/kernel_ab/summary.json``).
 """
@@ -69,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "kernel_ab"
 WIDE_K = (16, 33, 64)     # K3 above the parent's bound of 8 (this tree)
 WIDE_FANOUTS = (128, 256)  # K2 above the parent's bound of 64 (this tree)
+K6_ITERS = 20
 
 
 def make_inputs(path: Path) -> None:
@@ -144,6 +154,34 @@ def make_inputs(path: Path) -> None:
           flush=True)
 
 
+def time_k6(torch, tree_tag: str) -> tuple[dict, dict]:
+    """K6 at ``K6_SHAPES`` and the empty-groups case in both dtypes: the
+    timings, and the outputs to compare (float32 under one name for both
+    trees, bfloat16 under this tree's ``tree_tag``)."""
+    import chip_smoke as cs
+    from repro_torch.kernels.ragged_dot import ragged_dot
+
+    shapes = dict(cs.K6_SHAPES, empty=(1000, 256, 192, 40))
+    res, outs = {}, {}
+    for name, (m, k, n, g) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            lhs, rhs, sizes = cs.k6_inputs(torch, m, k, n, g, dtype, 17,
+                                           empty=name == "empty")
+            fn = lambda: ragged_dot(lhs, rhs, sizes)  # noqa: E731
+            key = f"k6_{name}_{dt}"
+            outs[key if dtype == torch.float32 else f"{key}_{tree_tag}"] = (
+                fn().cpu())
+            res[f"{key}_ms"] = cs.device_ms(torch, fn, K6_ITERS)
+            res[f"{key}_call_ms"] = cs.call_ms(torch, fn, K6_ITERS)
+            del lhs, rhs, sizes
+            torch.cuda.empty_cache()
+    paths = getattr(ragged_dot, "launches_by_path", None)
+    if paths is not None:
+        res["k6_paths"] = dict(paths)
+    return res, outs
+
+
 def time_tree(tree: Path, inputs: Path, outputs: Path, wide: bool) -> None:
     import torch
 
@@ -160,6 +198,7 @@ def time_tree(tree: Path, inputs: Path, outputs: Path, wide: bool) -> None:
     cs.require(Path(repro_torch.__file__).resolve().is_relative_to(
         tree.resolve()), f"imported {repro_torch.__file__}, not {tree}")
     build.library()
+    k6_res, k6_outs = time_k6(torch, "this" if wide else "other")
 
     def cuda(v):
         if torch.is_tensor(v):
@@ -206,7 +245,8 @@ def time_tree(tree: Path, inputs: Path, outputs: Path, wide: bool) -> None:
                     tiled=ranks.cpu(),
                     **{f"k5_{lb}": fn().cpu() for lb, fn in k5.items()},
                     **{f"k3_k{k}": fn().cpu() for k, fn in k3w.items()},
-                    **{f"k2_fanout{f}": fn().cpu() for f, fn in k2w.items()}),
+                    **{f"k2_fanout{f}": fn().cpu() for f, fn in k2w.items()},
+                    **k6_outs),
                outputs)
     res = {
         "tree": str(tree), "card": cs.card_line(),
@@ -237,6 +277,7 @@ def time_tree(tree: Path, inputs: Path, outputs: Path, wide: bool) -> None:
            for f, fn in k2w.items()},
         "floor_ms": cs.device_ms(torch, lambda: x.add_(1), 500),
         "floor_cold_ms": cs.cold_ms(torch, lambda: x.add_(1), 200),
+        **k6_res,
     }
     print(json.dumps(res), flush=True)
 

@@ -6,7 +6,8 @@ into one shared library with a plain ``extern "C"`` interface, loaded with
 ``ctypes``. The build happens at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and is keyed by a
 hash of the sources, the shared ``csrc/*.cuh`` headers and the flags, so an
-edited source or header rebuilds.
+edited source or header rebuilds. The link adds ``libcuda``
+(``-lcuda``) for K6's TMA tensor maps.
 
 The first load is guarded by a module lock: the gateway's flusher thread
 and the maintenance workers may all reach a kernel first, and two builds
@@ -36,6 +37,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
+# libcuda: K6 encodes its TMA tensor maps with cuTensorMapEncodeTiled
+# (nvcc finds the toolkit's link stub)
+LINK_FLAGS = ("-lcuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +60,7 @@ SIGNATURES = {
     # pass_hi, stream
     "tile_search_launch": [_P] * 5 + [_I] + [ctypes.c_longlong] * 2
                           + [_I, _I, _P],
-    # lhs, rhs, group_sizes, out, m, k, n, g, bf16, vec, stream
+    # lhs, rhs, group_sizes, out, m, k, n, g, bf16, tma, stream
     "ragged_dot_launch": [_P] * 4 + [_I] * 6 + [_P],
 }
 
@@ -72,7 +76,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -104,7 +108,8 @@ def build() -> tuple[Path, str, float]:
             raise RuntimeError(f"nvcc failed for {obj.name}:\n{out}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
+        [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs),
+         *LINK_FLAGS],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:
@@ -141,11 +146,15 @@ library.cache_info = _load.cache_info
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, path: str | None = None) -> None:
     """Add one to ``wrapper.launches`` where the wrapper launched its
-    kernel; under the lock, so threads that launch at once lose no count."""
+    kernel, and to ``wrapper.launches_by_path[path]`` where it has more
+    than one; under the lock, so threads that launch at once lose no
+    count."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if path is not None:
+            wrapper.launches_by_path[path] += 1
 
 
 def check(err: int, name: str) -> None:

@@ -7,35 +7,71 @@
 //
 // Replaces XLA's jax.lax.ragged_dot in moe_ragged
 // (src/repro/models/moe.py:81-83); the reference has no Pallas kernel for
-// it. The group sizes are read on the device: the wrapper launches an upper
-// bound of row tiles and never syncs the host on them.
+// it. The group sizes are read on the device: the host launches for an
+// upper bound of row tiles and never syncs on them.
 //
 // What bounds it on the H100: at the MoE shapes (M = tokens x top-k of a
 // few thousand, K and N of 768 to 5120, 128 to 160 groups) each group's
-// rhs is read once or twice and holds most of the bytes: about 0.4 GB for
-// qwen3-moe's expert up-projection, 127 us at 3.35 TB/s, against 13 us of
-// bf16 tensor-core work. So bytes, and the design streams each group's rhs
-// through shared memory once per row tile of that group.
+// rhs holds most of the bytes: about 0.4 GB for qwen3-moe's expert
+// up-projection, 127 us at 3.35 TB/s, against 13 us of bf16 tensor-core
+// work. So bytes: every row tile reads its group's rhs once per N tile,
+// and with groups of at most 64 rows that is each rhs byte once. The
+// kernel's job is to keep enough of those bytes in flight on every SM.
 //
-// Design (a simple first kernel; wgmma and TMA are later work):
-//   * A CTA owns one BM x BN output tile. Row tiles never straddle two
-//     groups: group g has ceil(rows_g / BM) of them, in group order, then
-//     the zero rows past the sum get theirs. Tile counts add up to at most
-//     ceil(M / BM) + G + 1, which is what the launcher launches; a CTA past
-//     the real count exits. Warp 0 of each CTA finds its tile by a warp
-//     scan over the group sizes, 32 groups at a time (find_tile).
-//   * bfloat16: 4 warps, each a 32 x 32 quarter of a 64 x 64 tile as 2 x 2
-//     WMMA 16x16x16 bf16 products with float32 accumulators (mma.sync on
-//     the tensor cores); 64 x 32 lhs and 32 x 64 rhs tiles in shared
-//     memory, loaded 16 bytes a thread where K and N are multiples of 8.
-//     The accumulators go through shared memory and are rounded to bf16
-//     once (round to nearest even).
-//   * float32: 256 threads, a 4 x 4 micro-tile each, 64 x 16 lhs and
-//     16 x 64 rhs tiles in shared memory; each output is a chain of fmaf
-//     over k = 0 .. K - 1 in order (no TF32), so it is deterministic.
-//   * Offsets into rhs are 64-bit: deepseek-v2's G x K x N is 1.26 G
-//     elements.
+// Design (the TMA path: K and N multiples of 16 bytes' worth of elements,
+// 16-byte aligned bases):
+//   * Work items. An item is one row tile (BM = 64 rows of one group; a
+//     tile never straddles two groups) times one BN = 128 column tile. Row
+//     tiles come in group order, then the tiles of the zero rows past the
+//     sum; there are at most ceil(M / 64) + G + 1 of them, which the host
+//     knows without reading the sizes. Items are numbered row tile major,
+//     so the N tiles of one row tile (which share its lhs rows) and the row
+//     tiles of one group (which share its rhs) run side by side and meet in
+//     L2. A persistent grid of min(items, SMs x CTAs per SM) CTAs walks
+//     items blockIdx.x, blockIdx.x + gridDim.x, ... and stops at the first
+//     past the real count.
+//   * Finding a row tile. The producer warp scans the group sizes, 32
+//     groups a step (find_tile), from a cursor kept between its items:
+//     items only grow, so each search resumes at the chunk of the last one.
+//     The scan runs ahead of the consumers by the depth of the ring, so it
+//     costs them nothing; no prologue kernel and no scratch are needed.
+//   * A ring of STAGES = 4 shared-memory stages of 24 KB, filled by TMA
+//     (cp.async.bulk.tensor) from one producer lane, completion on an
+//     mbarrier per stage ("full"), freed by the consumer warps' arrivals
+//     ("empty"). The producer hands each item's (group, rows, n0) to the
+//     consumers in the stage's slot of `meta`, written before its arrival
+//     on "full". rhs is a 3-D tensor map (N, K, G): a K tail is zero-filled
+//     inside its own group, and the group coordinate keeps deepseek-v2's
+//     1.26 G-element rhs off 64-bit offsets. The launcher encodes both
+//     tensor maps per call on the host (cuTensorMapEncodeTiled, from
+//     libcuda, which the build links) and passes them as
+//     __grid_constant__ parameters; it never syncs. lhs rows past M are
+//     zero-filled; rows past the tile's last row belong to the next group
+//     and are loaded, multiplied and never stored.
+//   * bfloat16: one consumer warpgroup runs wgmma.mma_async m64n64k16 (two
+//     per 16-deep step, one per 64-column half of the tile) from shared
+//     memory, float32 accumulators in registers; lhs is K-major and rhs
+//     N-major (the transpose bit for B), both with the 128-byte swizzle the
+//     TMA wrote (64-wide boxes, the swizzle's limit). The accumulators are
+//     rounded once to bf16 (nearest even) and stored from registers, only
+//     rows [row0, row1) and columns below N.
+//   * float32: eight consumer warps, each eight rows of the tile, each lane
+//     a 4 x 8 register micro-tile (12 shared-memory vector loads per 128
+//     FMAs); a warp whose rows all lie past the tile's last row skips the
+//     arithmetic. Each output is one chain of fmaf over k = 0 .. K - 1 in
+//     order, from 0, with no TF32: deterministic, and the same bits as the
+//     simple kernel below. The consumers, not the bytes, bound it (on the
+//     H100 at qwen3-moe's up-projection, 0.55 ms against 0.25 ms of
+//     bytes): with about 32 real rows a tile, each shared-memory load feeds
+//     few FMAs. Layouts that spread those rows over more warps but took
+//     more loads per FMA (warps splitting columns, or half-width warps for
+//     tiles of at most 32 rows) ran no faster there.
+//   * The simple kernels (shapes TMA cannot describe): one CTA per 64 x 64
+//     output tile of an upper bound of row tiles, scalar loads into one
+//     shared-memory stage, WMMA bf16 or the same fmaf chain in float32.
+//   * Offsets into out are 64-bit (row * N).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -44,13 +80,20 @@
 namespace {
 
 constexpr int BM = 64;
-constexpr int BN = 64;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Tile {
     int group;  // -1: zero rows past the sum
-    int row0;   // first row; row0 >= row1: past the real tiles, exit
+    int row0;   // first row; row0 >= row1: past the real tiles
     int row1;   // one past the last row
+};
+
+// Groups before `base` are summed into row_base (rows) and tile_base (row
+// tiles); row tiles are looked up in increasing order from one cursor.
+struct Cursor {
+    int base = 0;
+    long long row_base = 0;
+    long long tile_base = 0;
 };
 
 __device__ __forceinline__ long long warp_incl_scan(long long v, int lane) {
@@ -62,60 +105,470 @@ __device__ __forceinline__ long long warp_incl_scan(long long v, int lane) {
     return v;
 }
 
-// Warp 0 only: which group and rows row tile `tile` covers.
-__device__ void find_tile(const int* __restrict__ gs, int G, int M, int tile,
-                          Tile* out) {
+// A whole warp: which group and rows row tile `tile` covers (every lane
+// gets the answer). `tile` is never below the previous call's on `c`.
+__device__ Tile find_tile(const int* __restrict__ gs, int G, int M,
+                          long long tile, Cursor& c) {
     const int lane = threadIdx.x & 31;
-    long long row_base = 0;   // rows of the groups before this chunk
-    long long tile_base = 0;  // row tiles of the groups before this chunk
-    for (int base = 0; base < G; base += 32) {
-        const int g = base + lane;
+    for (; c.base < G; c.base += 32) {
+        const int g = c.base + lane;
         const long long size = g < G ? max(__ldg(gs + g), 0) : 0;
         const long long incl = warp_incl_scan(size, lane);
-        const long long start = row_base + incl - size;
-        const long long s_c = min(start, (long long)M);
-        const long long e_c = min(start + size, (long long)M);
+        const long long s_c = min(c.row_base + incl - size, (long long)M);
+        const long long e_c = min(c.row_base + incl, (long long)M);
         const long long tiles = (e_c - s_c + BM - 1) / BM;
         const long long t_incl = warp_incl_scan(tiles, lane);
-        const long long t_start = tile_base + t_incl - tiles;
-        const bool mine = tile >= t_start && tile < t_start + tiles;
+        const long long t_start = c.tile_base + t_incl - tiles;
+        const unsigned mine =
+            __ballot_sync(kFull, tile >= t_start && tile < t_start + tiles);
         if (mine) {
+            const int src = __ffs(mine) - 1;
             const long long r0 = s_c + (tile - t_start) * BM;
-            out->group = g;
-            out->row0 = (int)r0;
-            out->row1 = (int)min(r0 + BM, e_c);
+            Tile t;
+            t.group = c.base + src;
+            t.row0 = (int)__shfl_sync(kFull, r0, src);
+            t.row1 = (int)__shfl_sync(kFull, min(r0 + BM, e_c), src);
+            return t;
         }
-        if (__ballot_sync(kFull, mine)) return;
-        row_base += __shfl_sync(kFull, incl, 31);
-        tile_base += __shfl_sync(kFull, t_incl, 31);
+        c.row_base += __shfl_sync(kFull, incl, 31);
+        c.tile_base += __shfl_sync(kFull, t_incl, 31);
     }
-    if (lane == 0) {  // the zero rows past the sum
-        const long long r0 =
-            min(row_base, (long long)M) + (tile - tile_base) * BM;
-        out->group = -1;
-        out->row0 = (int)min(r0, (long long)M);
-        out->row1 = (int)min(r0 + BM, (long long)M);
+    // the zero rows past the sum
+    const long long r0 =
+        min(c.row_base, (long long)M) + (tile - c.tile_base) * BM;
+    Tile t;
+    t.group = -1;
+    t.row0 = (int)min(r0, (long long)M);
+    t.row1 = (int)min(r0 + BM, (long long)M);
+    return t;
+}
+
+// ------------------------------------------------------ TMA, mbarrier, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_u32(bar)),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const uint32_t a = smem_u32(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+            smem_u32(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+        "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
+            smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+        "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) |
+           ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] += A[64 x 16] (K-major) x B[16 x 64] (N-major), bf16 in,
+// float32 accumulators in the wgmma fragment layout.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "setp.ne.b32 p, %34, 0;\n\t"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n\t}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// -------------------------------------------------------- the TMA path
+
+// One stage: a BM x BK lhs box, then BK x BN of rhs as B_BOXES boxes of
+// B_BOX_N columns. Both dtypes take 24 KB a stage.
+struct Bf16Cfg {
+    using T = __nv_bfloat16;
+    static constexpr int BN = 128, BK = 64, B_BOXES = 2, B_BOX_N = 64;
+    static constexpr int CONSUMER_WARPS = 4;
+    static constexpr bool SWIZZLE = true;  // the 128-byte one wgmma reads
+};
+struct F32Cfg {
+    using T = float;
+    static constexpr int BN = 128, BK = 32, B_BOXES = 1, B_BOX_N = 128;
+    static constexpr int CONSUMER_WARPS = 8;
+    static constexpr bool SWIZZLE = false;  // read along plain rows
+};
+
+constexpr int STAGES = 4;
+
+template <class C>
+struct Ring {
+    static constexpr int A_BYTES = BM * C::BK * (int)sizeof(typename C::T);
+    static constexpr int B_BOX_BYTES =
+        C::BK * C::B_BOX_N * (int)sizeof(typename C::T);
+    static constexpr int STAGE_BYTES = A_BYTES + C::B_BOXES * B_BOX_BYTES;
+    static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
+    static constexpr int THREADS = (C::CONSUMER_WARPS + 1) * 32;
+};
+
+struct Item {
+    int group;  // -1: zero rows
+    int row0;
+    int row1;   // row0 >= row1: no more items for this CTA
+    int n0;
+};
+
+struct RingState {
+    int s = 0;
+    unsigned phase = 0;
+    __device__ __forceinline__ void next() {
+        if (++s == STAGES) {
+            s = 0;
+            phase ^= 1;
+        }
+    }
+};
+
+// The producer warp (the last warp of the CTA): finds each item's row tile
+// and fills the ring; lane 0 starts the copies.
+template <class C>
+__device__ void produce(const CUtensorMap* lhs_map, const CUtensorMap* rhs_map,
+                        const int* __restrict__ gs, int M, int K, int N,
+                        int G, long long items, uint8_t* smem, uint64_t* full,
+                        uint64_t* empty, Item* meta) {
+    using R = Ring<C>;
+    const int lane = threadIdx.x & 31;
+    const int n_tiles = (N + C::BN - 1) / C::BN;
+    const int nkb = (K + C::BK - 1) / C::BK;
+    Cursor cur;
+    RingState r;
+    for (long long item = blockIdx.x;; item += gridDim.x) {
+        Tile t{-1, 0, 0};
+        if (item < items) t = find_tile(gs, G, M, item / n_tiles, cur);
+        const bool stop = t.row0 >= t.row1;
+        const bool load = !stop && t.group >= 0;
+        const int n0 = (int)(item % n_tiles) * C::BN;
+        if (lane == 0) {
+            const int steps = load ? nkb : 1;
+            for (int kb = 0; kb < steps; ++kb) {
+                mbar_wait(&empty[r.s], r.phase ^ 1);
+                if (kb == 0) meta[r.s] = Item{t.group, t.row0, t.row1, n0};
+                if (!load) {
+                    mbar_arrive(&full[r.s]);
+                } else {
+                    uint8_t* st = smem + r.s * R::STAGE_BYTES;
+                    mbar_expect_tx(&full[r.s], R::STAGE_BYTES);
+                    tma_load_2d(st, lhs_map, &full[r.s], kb * C::BK, t.row0);
+#pragma unroll
+                    for (int b = 0; b < C::B_BOXES; ++b)
+                        tma_load_3d(st + R::A_BYTES + b * R::B_BOX_BYTES,
+                                    rhs_map, &full[r.s],
+                                    n0 + b * C::B_BOX_N, kb * C::BK,
+                                    t.group);
+                }
+                r.next();
+            }
+        }
+        __syncwarp();
+        if (stop) return;
     }
 }
+
+// Zero rows [row0, row1) x columns [n0, n0 + BN) below N, 16 bytes a store
+// (N is a multiple of the 16-byte vector on the TMA path).
+template <class C>
+__device__ void store_zero_rows(typename C::T* __restrict__ out,
+                                const Item& it, int N) {
+    constexpr int PER = 16 / (int)sizeof(typename C::T);
+    constexpr int CHUNKS = BM * C::BN / PER;
+    for (int e = threadIdx.x; e < CHUNKS; e += C::CONSUMER_WARPS * 32) {
+        const int row = it.row0 + e / (C::BN / PER);
+        const int col = it.n0 + (e % (C::BN / PER)) * PER;
+        if (row < it.row1 && col < N)
+            *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+                make_uint4(0, 0, 0, 0);
+    }
+}
+
+// One 64-column half of the bf16 accumulators, rounded once to bf16
+// (nearest even). The fragment holds rows ra and ra + 8 (ra = warp * 16 +
+// lane / 4 past the tile's first row) at columns 8 j + 2 (lane % 4) (+ 1).
+__device__ __forceinline__ void store_bf16_half(
+    __nv_bfloat16* __restrict__ out, const float (&d)[32], int ra, int row1,
+    int cb, int N) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int col = cb + j * 8;
+        if (col >= N) continue;
+        if (ra < row1)
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)ra * N + col) =
+                __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+        if (ra + 8 < row1)
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(ra + 8) * N +
+                                               col) =
+                __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+    }
+}
+
+// Consumers free a stage: one arrival per warp once its reads are done.
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+}
+
+__global__ void __launch_bounds__(Ring<Bf16Cfg>::THREADS)
+    ragged_dot_bf16_tma(const __grid_constant__ CUtensorMap lhs_map,
+                        const __grid_constant__ CUtensorMap rhs_map,
+                        const int* __restrict__ gs,
+                        __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                        int G, long long items) {
+    using C = Bf16Cfg;
+    using R = Ring<C>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+    __shared__ Item meta[STAGES];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], C::CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (warp == C::CONSUMER_WARPS) {
+        produce<C>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
+                   empty, meta);
+        return;
+    }
+    const int nkb = (K + C::BK - 1) / C::BK;
+    RingState r;
+    for (;;) {
+        mbar_wait(&full[r.s], r.phase);
+        const Item it = meta[r.s];
+        if (it.row0 >= it.row1) return;
+        if (it.group < 0) {
+            store_zero_rows<C>(out, it, N);
+            release(&empty[r.s], lane);
+            r.next();
+            continue;
+        }
+        float acc0[32], acc1[32];  // columns n0 + [0, 64) and [64, 128)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.0f;
+        for (int kb = 0; kb < nkb; ++kb) {
+            if (kb > 0) mbar_wait(&full[r.s], r.phase);
+            const uint32_t a = smem_u32(smem + r.s * R::STAGE_BYTES);
+            const uint32_t b = a + R::A_BYTES;
+            asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+            for (int kk = 0; kk < C::BK / 16; ++kk) {
+                // lhs: 128-byte rows of 64 k, 8-row groups 1024 bytes apart;
+                // a 16-deep step is 32 bytes along the row. rhs: 128-byte
+                // rows of 64 n per k, 8-k groups 1024 bytes apart; a step is
+                // 16 rows (2048 bytes); the two 64-column boxes are
+                // B_BOX_BYTES apart.
+                const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
+                wgmma_m64n64k16(
+                    acc0, da,
+                    sw128_desc(b + kk * 2048, R::B_BOX_BYTES, 1024));
+                wgmma_m64n64k16(
+                    acc1, da,
+                    sw128_desc(b + R::B_BOX_BYTES + kk * 2048,
+                               R::B_BOX_BYTES, 1024));
+            }
+            asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+            asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+            release(&empty[r.s], lane);
+            r.next();
+        }
+        const int ra = it.row0 + warp * 16 + (lane >> 2);
+        const int cb = it.n0 + (lane & 3) * 2;
+        store_bf16_half(out, acc0, ra, it.row1, cb, N);
+        store_bf16_half(out, acc1, ra, it.row1, cb + 64, N);
+    }
+}
+
+__global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)
+    ragged_dot_f32_tma(const __grid_constant__ CUtensorMap lhs_map,
+                       const __grid_constant__ CUtensorMap rhs_map,
+                       const int* __restrict__ gs, float* __restrict__ out,
+                       int M, int K, int N, int G, long long items) {
+    using C = F32Cfg;
+    using R = Ring<C>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+    __shared__ Item meta[STAGES];
+    uint8_t* smem = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], C::CONSUMER_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (warp == C::CONSUMER_WARPS) {
+        produce<C>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
+                   empty, meta);
+        return;
+    }
+    const int nkb = (K + C::BK - 1) / C::BK;
+    // -- the float32 consumers
+    // rows warp * 8 + ty * 4 + i, columns tx * 4 + j and 64 + tx * 4 + j
+    const int ty = lane >> 4, tx = lane & 15;
+    const int r_in = warp * 8 + ty * 4;
+    RingState r;
+    for (;;) {
+        mbar_wait(&full[r.s], r.phase);
+        const Item it = meta[r.s];
+        if (it.row0 >= it.row1) return;
+        if (it.group < 0) {
+            store_zero_rows<C>(out, it, N);
+            release(&empty[r.s], lane);
+            r.next();
+            continue;
+        }
+        const bool busy = warp * 8 < it.row1 - it.row0;
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+        for (int kb = 0; kb < nkb; ++kb) {
+            if (kb > 0) mbar_wait(&full[r.s], r.phase);
+            if (busy) {
+                const float* As = reinterpret_cast<const float*>(
+                    smem + r.s * R::STAGE_BYTES);  // [BM][BK]
+                const float* Bs = As + BM * C::BK;  // [BK][BN]
+#pragma unroll
+                for (int k4 = 0; k4 < C::BK; k4 += 4) {
+                    float4 a[4];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        a[i] = *reinterpret_cast<const float4*>(
+                            As + (r_in + i) * C::BK + k4);
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const float* brow = Bs + (k4 + q) * C::BN + tx * 4;
+                        const float4 b0 =
+                            *reinterpret_cast<const float4*>(brow);
+                        const float4 b1 =
+                            *reinterpret_cast<const float4*>(brow + 64);
+                        const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                             b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const float av = q == 0   ? a[i].x
+                                             : q == 1 ? a[i].y
+                                             : q == 2 ? a[i].z
+                                                      : a[i].w;
+#pragma unroll
+                            for (int j = 0; j < 8; ++j)
+                                acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+                        }
+                    }
+                }
+            }
+            release(&empty[r.s], lane);
+            r.next();
+        }
+        if (!busy) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = it.row0 + r_in + i;
+            if (row >= it.row1) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int col = it.n0 + h * 64 + tx * 4;
+                if (col < N)
+                    *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
+                        make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                    acc[i][4 * h + 2], acc[i][4 * h + 3]);
+            }
+        }
+    }
+    // -- end of the float32 consumers
+}
+
+// ------------------------------------------- the simple kernels (no TMA)
+
+constexpr int BN_S = 64;
 
 template <typename T>
 __device__ void zero_rows(T* __restrict__ out, int row0, int row1, int n0,
                           int N) {
-    for (int e = threadIdx.x; e < BM * BN; e += blockDim.x) {
-        const int row = row0 + e / BN, col = n0 + e % BN;
+    for (int e = threadIdx.x; e < BM * BN_S; e += blockDim.x) {
+        const int row = row0 + e / BN_S, col = n0 + e % BN_S;
         if (row < row1 && col < N) out[(size_t)row * N + col] = T(0.0f);
     }
 }
 
-// ---------------------------------------------------------------- bfloat16
-
 constexpr int BK16 = 32;
-constexpr int LDA16 = BK16 + 8;  // 80-byte rows: 16-byte vectors, 32-byte
-constexpr int LDB16 = BN + 8;    // aligned WMMA fragments
-constexpr int LDC = BN + 4;
+constexpr int LDA16 = BK16 + 8;  // 80-byte rows: 32-byte aligned WMMA
+constexpr int LDB16 = BN_S + 8;  // fragments
+constexpr int LDC = BN_S + 4;
 
-template <bool VEC>
-__global__ void __launch_bounds__(128) ragged_dot_bf16_kernel(
+__global__ void __launch_bounds__(128) ragged_dot_bf16_simple(
     const __nv_bfloat16* __restrict__ lhs,  // [M, K]
     const __nv_bfloat16* __restrict__ rhs,  // [G, K, N]
     const int* __restrict__ gs,             // [G]
@@ -126,11 +579,15 @@ __global__ void __launch_bounds__(128) ragged_dot_bf16_kernel(
     __shared__ __align__(32) __nv_bfloat16 As[BM * LDA16];
     __shared__ __align__(32) __nv_bfloat16 Bs[BK16 * LDB16];
     __shared__ __align__(32) float Cs[BM * LDC];
-    if (threadIdx.x < 32) find_tile(gs, G, M, blockIdx.x, &tile);
+    if (threadIdx.x < 32) {
+        Cursor c;
+        const Tile t = find_tile(gs, G, M, blockIdx.x, c);
+        if (threadIdx.x == 0) tile = t;
+    }
     __syncthreads();
     const int row0 = tile.row0, row1 = tile.row1, g = tile.group;
     if (row0 >= row1) return;
-    const int n0 = blockIdx.y * BN;
+    const int n0 = blockIdx.y * BN_S;
     if (g < 0) {
         zero_rows(out, row0, row1, n0, N);
         return;
@@ -146,39 +603,17 @@ __global__ void __launch_bounds__(128) ragged_dot_bf16_kernel(
         for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
     for (int k0 = 0; k0 < K; k0 += BK16) {
-        // lhs tile: BM x BK16 in chunks of 8
-        for (int c = threadIdx.x; c < BM * BK16 / 8; c += 128) {
-            const int r = c / (BK16 / 8), kc = (c % (BK16 / 8)) * 8;
+        for (int e = threadIdx.x; e < BM * BK16; e += 128) {
+            const int r = e / BK16, kc = e % BK16;
             const int row = row0 + r, kk = k0 + kc;
-            __nv_bfloat16* dst = As + r * LDA16 + kc;
-            const __nv_bfloat16* src = lhs + (size_t)row * K + kk;
-            if (VEC) {
-                uint4 v = make_uint4(0, 0, 0, 0);
-                if (row < row1 && kk < K)
-                    v = *reinterpret_cast<const uint4*>(src);
-                *reinterpret_cast<uint4*>(dst) = v;
-            } else {
-#pragma unroll
-                for (int e = 0; e < 8; ++e)
-                    dst[e] = row < row1 && kk + e < K ? src[e] : zero;
-            }
+            As[r * LDA16 + kc] =
+                row < row1 && kk < K ? lhs[(size_t)row * K + kk] : zero;
         }
-        // rhs tile: BK16 x BN in chunks of 8
-        for (int c = threadIdx.x; c < BK16 * BN / 8; c += 128) {
-            const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+        for (int e = threadIdx.x; e < BK16 * BN_S; e += 128) {
+            const int r = e / BN_S, nc = e % BN_S;
             const int kk = k0 + r, col = n0 + nc;
-            __nv_bfloat16* dst = Bs + r * LDB16 + nc;
-            const __nv_bfloat16* src = B + (size_t)kk * N + col;
-            if (VEC) {
-                uint4 v = make_uint4(0, 0, 0, 0);
-                if (kk < K && col < N)
-                    v = *reinterpret_cast<const uint4*>(src);
-                *reinterpret_cast<uint4*>(dst) = v;
-            } else {
-#pragma unroll
-                for (int e = 0; e < 8; ++e)
-                    dst[e] = kk < K && col + e < N ? src[e] : zero;
-            }
+            Bs[r * LDB16 + nc] =
+                kk < K && col < N ? B[(size_t)kk * N + col] : zero;
         }
         __syncthreads();
 #pragma unroll
@@ -210,33 +645,34 @@ __global__ void __launch_bounds__(128) ragged_dot_bf16_kernel(
             wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
                                     acc[i][j], LDC, wmma::mem_row_major);
     __syncthreads();
-    for (int e = threadIdx.x; e < BM * BN; e += 128) {
-        const int r = e / BN, c = e % BN;
+    for (int e = threadIdx.x; e < BM * BN_S; e += 128) {
+        const int r = e / BN_S, c = e % BN_S;
         const int row = row0 + r, col = n0 + c;
         if (row < row1 && col < N)
             out[(size_t)row * N + col] = __float2bfloat16_rn(Cs[r * LDC + c]);
     }
 }
 
-// ----------------------------------------------------------------- float32
-
 constexpr int BK32 = 16;
 
-template <bool VEC>
-__global__ void __launch_bounds__(256) ragged_dot_f32_kernel(
+__global__ void __launch_bounds__(256) ragged_dot_f32_simple(
     const float* __restrict__ lhs,  // [M, K]
     const float* __restrict__ rhs,  // [G, K, N]
     const int* __restrict__ gs,     // [G]
     float* __restrict__ out,        // [M, N]
     int M, int K, int N, int G) {
     __shared__ Tile tile;
-    __shared__ __align__(16) float As[BK32][BM + 4];  // transposed: [k][m]
-    __shared__ __align__(16) float Bs[BK32][BN + 4];
-    if (threadIdx.x < 32) find_tile(gs, G, M, blockIdx.x, &tile);
+    __shared__ float As[BK32][BM + 4];  // transposed: [k][m]
+    __shared__ float Bs[BK32][BN_S + 4];
+    if (threadIdx.x < 32) {
+        Cursor c;
+        const Tile t = find_tile(gs, G, M, blockIdx.x, c);
+        if (threadIdx.x == 0) tile = t;
+    }
     __syncthreads();
     const int row0 = tile.row0, row1 = tile.row1, g = tile.group;
     if (row0 >= row1) return;
-    const int n0 = blockIdx.y * BN;
+    const int n0 = blockIdx.y * BN_S;
     if (g < 0) {
         zero_rows(out, row0, row1, n0, N);
         return;
@@ -252,39 +688,23 @@ __global__ void __launch_bounds__(256) ragged_dot_f32_kernel(
     for (int k0 = 0; k0 < K; k0 += BK32) {
         {  // lhs tile: BM x BK32, 4 along k per thread
             const int r = threadIdx.x >> 2, kc = (threadIdx.x & 3) * 4;
-            const int row = row0 + r, kk = k0 + kc;
-            const float* src = lhs + (size_t)row * K + kk;
-            float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (VEC) {
-                if (row < row1 && kk < K) {
-                    const float4 f = *reinterpret_cast<const float4*>(src);
-                    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-                }
-            } else {
+            const int row = row0 + r;
 #pragma unroll
-                for (int q = 0; q < 4; ++q)
-                    if (row < row1 && kk + q < K) v[q] = src[q];
+            for (int q = 0; q < 4; ++q) {
+                const int kk = k0 + kc + q;
+                As[kc + q][r] =
+                    row < row1 && kk < K ? lhs[(size_t)row * K + kk] : 0.0f;
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) As[kc + q][r] = v[q];
         }
-        {  // rhs tile: BK32 x BN, 4 along n per thread
+        {  // rhs tile: BK32 x BN_S, 4 along n per thread
             const int r = threadIdx.x >> 4, nc = (threadIdx.x & 15) * 4;
-            const int kk = k0 + r, col = n0 + nc;
-            const float* src = B + (size_t)kk * N + col;
-            float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            if (VEC) {
-                if (kk < K && col < N) {
-                    const float4 f = *reinterpret_cast<const float4*>(src);
-                    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-                }
-            } else {
+            const int kk = k0 + r;
 #pragma unroll
-                for (int q = 0; q < 4; ++q)
-                    if (kk < K && col + q < N) v[q] = src[q];
+            for (int q = 0; q < 4; ++q) {
+                const int col = n0 + nc + q;
+                Bs[r][nc + q] =
+                    kk < K && col < N ? B[(size_t)kk * N + col] : 0.0f;
             }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) Bs[r][nc + q] = v[q];
         }
         __syncthreads();
 #pragma unroll
@@ -314,42 +734,115 @@ __global__ void __launch_bounds__(256) ragged_dot_f32_kernel(
     }
 }
 
+// ------------------------------------------------------------- launchers
+
+// lhs [M, K] as a 2-D map (K inner) in BM x BK boxes; rhs [G, K, N] as a
+// 3-D map (N inner, then K, then G) in B_BOX_N x BK x 1 boxes. bf16 takes
+// the 128-byte swizzle wgmma reads, float32 none (its consumers read rows).
+template <class C>
+int encode_maps(const void* lhs, const void* rhs, int m, int k, int n, int g,
+                CUtensorMap* a_map, CUtensorMap* b_map) {
+    const bool bf16 = sizeof(typename C::T) == 2;
+    const CUtensorMapDataType dt = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    const CUtensorMapSwizzle sw =
+        C::SWIZZLE ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+    const cuuint64_t el = sizeof(typename C::T);
+    const cuuint32_t ones[3] = {1, 1, 1};
+    const cuuint64_t a_dim[2] = {(cuuint64_t)k, (cuuint64_t)m};
+    const cuuint64_t a_str[1] = {(cuuint64_t)k * el};
+    const cuuint32_t a_box[2] = {(cuuint32_t)C::BK, (cuuint32_t)BM};
+    const cuuint64_t b_dim[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)g};
+    const cuuint64_t b_str[2] = {(cuuint64_t)n * el,
+                                 (cuuint64_t)n * (cuuint64_t)k * el};
+    const cuuint32_t b_box[3] = {(cuuint32_t)C::B_BOX_N, (cuuint32_t)C::BK,
+                                 1};
+    CUresult r = cuTensorMapEncodeTiled(
+        a_map, dt, 2, const_cast<void*>(lhs), a_dim, a_str, a_box, ones,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+    r = cuTensorMapEncodeTiled(
+        b_map, dt, 3, const_cast<void*>(rhs), b_dim, b_str, b_box, ones,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// CTAs the persistent grid may keep on the card: SMs x CTAs per SM, from
+// the occupancy of `kernel` (asked once per kernel and device).
+template <class C, typename K>
+int persistent_ctas(K kernel, int* cache) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return -(int)e;
+    if (dev >= 0 && dev < 64 && cache[dev] > 0) return cache[dev];
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Ring<C>::SMEM);
+    if (e != cudaSuccess) return -(int)e;
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return -(int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, Ring<C>::THREADS, Ring<C>::SMEM);
+    if (e != cudaSuccess) return -(int)e;
+    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+    const int ctas = sms * per_sm;
+    if (dev >= 0 && dev < 64) cache[dev] = ctas;
+    return ctas;
+}
+
+template <class C, typename K>
+int launch_tma(K kernel, int* cache, const void* lhs, const void* rhs,
+               const int* gs, void* out, int m, int k, int n, int g,
+               cudaStream_t st) {
+    CUtensorMap a_map, b_map;
+    int err = encode_maps<C>(lhs, rhs, m, k, n, g, &a_map, &b_map);
+    if (err) return err;
+    const int ctas = persistent_ctas<C>(kernel, cache);
+    if (ctas < 0) return -ctas;
+    const long long items =
+        ((m + BM - 1LL) / BM + g + 1) * ((n + C::BN - 1LL) / C::BN);
+    const int grid = (int)(items < ctas ? items : ctas);
+    kernel<<<grid, Ring<C>::THREADS, Ring<C>::SMEM, st>>>(
+        a_map, b_map, gs, (typename C::T*)out, m, k, n, g, items);
+    return (int)cudaGetLastError();
+}
+
+int bf16_ctas[64], f32_ctas[64];
+
 }  // namespace
 
-// bf16: 1 for bfloat16, 0 for float32. vec: K and N are multiples of the
-// 16-byte vector (8 bf16 or 4 float32) and lhs and rhs are 16-byte aligned.
+// bf16: 1 for bfloat16, 0 for float32. vec: the TMA path (K and N are
+// multiples of the 16-byte vector, 8 bf16 or 4 float32, K and G are
+// positive and lhs and rhs are 16-byte aligned); else the simple kernels.
 extern "C" int ragged_dot_launch(
     const void* lhs, const void* rhs, const void* group_sizes, void* out,
     int m, int k, int n, int g, int bf16, int vec, void* stream) {
     if (m <= 0 || n <= 0) return 0;
     if (k < 0 || g < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int* gs = (const int*)group_sizes;
+    if (vec) {
+        if (k == 0 || g == 0) return (int)cudaErrorInvalidValue;
+        return bf16 ? launch_tma<Bf16Cfg>(ragged_dot_bf16_tma, bf16_ctas,
+                                          lhs, rhs, gs, out, m, k, n, g, st)
+                    : launch_tma<F32Cfg>(ragged_dot_f32_tma, f32_ctas, lhs,
+                                         rhs, gs, out, m, k, n, g, st);
+    }
     const long long tiles_m = (m + BM - 1LL) / BM + g + 1;
-    const long long tiles_n = (n + BN - 1LL) / BN;
+    const long long tiles_n = (n + BN_S - 1LL) / BN_S;
     if (tiles_m > 0x7FFFFFFFLL || tiles_n > 65535)
         return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)tiles_m, (unsigned)tiles_n);
-    cudaStream_t st = (cudaStream_t)stream;
-    const int* gs = (const int*)group_sizes;
-    if (bf16) {
-        const __nv_bfloat16* a = (const __nv_bfloat16*)lhs;
-        const __nv_bfloat16* b = (const __nv_bfloat16*)rhs;
-        __nv_bfloat16* o = (__nv_bfloat16*)out;
-        if (vec)
-            ragged_dot_bf16_kernel<true><<<grid, 128, 0, st>>>(a, b, gs, o, m,
-                                                               k, n, g);
-        else
-            ragged_dot_bf16_kernel<false><<<grid, 128, 0, st>>>(a, b, gs, o, m,
-                                                                k, n, g);
-    } else {
-        const float* a = (const float*)lhs;
-        const float* b = (const float*)rhs;
-        float* o = (float*)out;
-        if (vec)
-            ragged_dot_f32_kernel<true><<<grid, 256, 0, st>>>(a, b, gs, o, m,
-                                                              k, n, g);
-        else
-            ragged_dot_f32_kernel<false><<<grid, 256, 0, st>>>(a, b, gs, o, m,
-                                                               k, n, g);
-    }
+    if (bf16)
+        ragged_dot_bf16_simple<<<grid, 128, 0, st>>>(
+            (const __nv_bfloat16*)lhs, (const __nv_bfloat16*)rhs, gs,
+            (__nv_bfloat16*)out, m, k, n, g);
+    else
+        ragged_dot_f32_simple<<<grid, 256, 0, st>>>(
+            (const float*)lhs, (const float*)rhs, gs, (float*)out, m, k, n,
+            g);
     return (int)cudaGetLastError();
 }

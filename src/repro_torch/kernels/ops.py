@@ -235,3 +235,5 @@ def reset_launch_counts() -> None:
     _tiles.tile_search.launches = 0
     _locate.spline_lookup.launches = 0
     _ragged.ragged_dot.launches = 0
+    for p in _ragged.ragged_dot.launches_by_path:
+        _ragged.ragged_dot.launches_by_path[p] = 0

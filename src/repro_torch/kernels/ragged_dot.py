@@ -9,12 +9,16 @@ a per-group loop (``ref.ragged_dot_plain``) would sync the host on every
 expert product.
 
 The CUDA source is ``csrc/ragged_dot.cu``; its header says what bounds it
-on the H100 (the bytes of each group's ``rhs``) and how it tiles. The
-kernel reads the group sizes itself: the launch covers an upper bound of
-row tiles, ``ceil(M / 64) + G + 1``, and the tiles past the real count
-exit, so the wrapper never reads ``group_sizes`` on the host.
-``ragged_dot`` launches it for CUDA tensors and runs the plain version for
-CPU tensors; ``ragged_dot.launches`` counts the CUDA launches.
+on the H100 (the bytes of each group's ``rhs``) and how it works. The
+kernel reads the group sizes itself: it walks an upper bound of row tiles,
+``ceil(M / 64) + G + 1``, and stops at the first past the real count, so
+the wrapper never reads ``group_sizes`` on the host. Two paths, chosen by
+shape and alignment only (``path``): ``"tma"``, a persistent grid fed by
+TMA through a shared-memory ring (``wgmma`` for bfloat16), where TMA can
+describe the tensors; ``"simple"``, one CTA per output tile with plain
+loads, for the rest. ``ragged_dot`` launches one of them for CUDA tensors
+and runs the plain version for CPU tensors; ``ragged_dot.launches`` counts
+the CUDA launches and ``ragged_dot.launches_by_path`` splits them by path.
 """
 from __future__ import annotations
 
@@ -24,6 +28,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ragged_dot_plain
 
 _INT32_MAX = (1 << 31) - 1
+
+
+def path(lhs, rhs) -> str:
+    """Which K6 kernel takes ``lhs`` [M, K] and ``rhs`` [G, K, N]:
+    ``"tma"`` where a TMA tensor map can describe both (K and N multiples
+    of the 16-byte vector, 8 bfloat16 or 4 float32; K and G positive; both
+    bases 16-byte aligned), else ``"simple"``. Shape and alignment only,
+    never a failure."""
+    k = lhs.shape[1]
+    g, _, n = rhs.shape
+    per_vec = 16 // lhs.element_size()  # elements in a 16-byte vector
+    fits = (k % per_vec == 0 and n % per_vec == 0 and k > 0 and g > 0
+            and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
+    return "tma" if fits else "simple"
 
 
 def ragged_dot(lhs, rhs, group_sizes):
@@ -63,18 +81,17 @@ def ragged_dot(lhs, rhs, group_sizes):
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0 or n == 0:
         return out
-    per_vec = 16 // lhs.element_size()  # elements in a 16-byte load
-    vec = (k % per_vec == 0 and n % per_vec == 0
-           and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
+    which = path(lhs, rhs)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.library().ragged_dot_launch(
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
         out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
-        int(vec), stream,
+        int(which == "tma"), stream,
     )
     build.check(err, "ragged_dot")
-    build.count_launch(ragged_dot)
+    build.count_launch(ragged_dot, which)
     return out
 
 
 ragged_dot.launches = 0
+ragged_dot.launches_by_path = {"tma": 0, "simple": 0}

@@ -18,7 +18,12 @@ order only). On the card K6 is held to the plain version within
 up to 5120 products), and at bfloat16 within one bfloat16 ulp plus that
 float32 bound: the tensor cores sum the products in another order than
 cuBLAS, and near zero, where a bf16 ulp is small, the two float32 sums
-can differ by more than one (seen on the H100 at K = 2048).
+can differ by more than one (seen on the H100 at K = 2048). K6's float32
+arithmetic is one fmaf chain per output, so on the card it is also held
+bit for bit to ``_fmaf_chain``, that chain written with ``ref.fma_f32``.
+Which K6 kernel runs (``k6.path``: TMA or the simple one) depends on shape
+and alignment only; the CPU tests pin the choice, the card's tests count
+the launches of each.
 """
 import dataclasses
 
@@ -34,8 +39,9 @@ from repro.configs import smoke_config as jsmoke
 from repro.models import forward_lm as jforward
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import ragged_dot as k6
 from repro_torch.kernels.ragged_dot import ragged_dot
-from repro_torch.kernels.ref import ragged_dot_plain
+from repro_torch.kernels.ref import fma_f32, ragged_dot_plain
 from repro_torch.models import compute_params, forward_lm, params_from_numpy
 from repro_torch.models import moe as tmoe
 from tests.test_torch_models import BF16_TOL, DTYPES, _np, numpy_params
@@ -337,6 +343,68 @@ def test_ragged_dot_wrapper_runs_the_plain_version_on_the_cpu():
     assert ops.launch_counts()["ragged_dot"] == before
 
 
+def _fmaf_chain(lhs, rhs, sizes):
+    """K6's float32 arithmetic: each output one chain of single-rounding
+    multiply-adds over k = 0 .. K - 1 in order, from 0 (``ref.fma_f32``);
+    rows past the sum zero, groups cut at row M, negative sizes 0."""
+    m, k = lhs.shape
+    out = torch.zeros((m, rhs.shape[2]), dtype=torch.float32,
+                      device=lhs.device)
+    start = 0
+    for g, size in enumerate(sizes.tolist()):
+        end = min(start + max(int(size), 0), m)
+        if end > start:
+            acc = torch.zeros_like(out[start:end])
+            for kk in range(k):
+                acc = fma_f32(lhs[start:end, kk:kk + 1],
+                              rhs[g, kk:kk + 1, :], acc)
+            out[start:end] = acc
+        start = end
+    return out
+
+
+@pytest.mark.parametrize("case", ["small", "wide", "odd"])
+def test_fmaf_chain_matches_plain(case):
+    """The bit-level reference of K6's float32 path computes ragged_dot."""
+    lhs, rhs, sizes = (torch.from_numpy(a) for a in _ragged_case(case))
+    got = _fmaf_chain(lhs, rhs, sizes)
+    assert not got[int(sizes.sum()):].any()
+    torch.testing.assert_close(got, ragged_dot_plain(lhs, rhs, sizes),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+# (lhs shape, rhs shape, dtype, lhs offset in elements) -> K6's kernel
+K6_PATHS = {
+    "qwen3_we1_bf16": ((4096, 2048), (128, 2048, 768), "bfloat16", 0, "tma"),
+    "deepseek_f32": ((3072, 5120), (160, 5120, 1536), "float32", 0, "tma"),
+    "k_tail_bf16": ((300, 2056), (5, 2056, 256), "bfloat16", 0, "tma"),
+    "n_tail_f32": ((300, 256), (5, 256, 776), "float32", 0, "tma"),
+    "odd": ((333, 100), (7, 100, 70), "bfloat16", 0, "simple"),
+    "k_off_vector_f32": ((64, 66), (4, 66, 64), "float32", 0, "simple"),
+    "n_off_vector_bf16": ((64, 64), (4, 64, 36), "bfloat16", 0, "simple"),
+    "view_16_byte": ((300, 264), (5, 264, 256), "bfloat16", 264, "tma"),
+    "view_8_byte": ((64, 64), (4, 64, 64), "float32", 2, "simple"),
+    "k_zero": ((64, 0), (4, 0, 64), "bfloat16", 0, "simple"),
+    "no_groups": ((64, 64), (0, 64, 64), "float32", 0, "simple"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_PATHS))
+def test_k6_path_is_chosen_by_shape_and_alignment(case):
+    """TMA where a tensor map can describe lhs and rhs (K and N multiples
+    of 16 bytes' worth of elements, K and G positive, 16-byte aligned
+    bases, a view off a 128-byte line included), else the simple kernel.
+    Only shapes and pointers are read, so CPU tensors stand in for the
+    card's (rhs as one element expanded: its shape and an aligned
+    address)."""
+    (m, k), (g, k2, n), dtype, off, want = K6_PATHS[case]
+    tdt = DTYPES[dtype][1]
+    lhs = torch.empty(m * k + off, dtype=tdt)[off:].view(m, k)
+    rhs = torch.empty((1, 1, 1), dtype=tdt).expand(g, k2, n)
+    assert lhs.data_ptr() % 16 == (off * lhs.element_size()) % 16
+    assert k6.path(lhs, rhs) == want
+
+
 # ------------------------------------------------------------------ the card
 
 # chip_smoke.py phase 17c's shapes: (M, K, N, G) of qwen3-moe's expert
@@ -369,9 +437,13 @@ def test_k6_matches_plain_on_cuda(cuda, shape, dtype):
                   "odd": (333, 100, 70, 7)}.get(shape, K6_SHAPES.get(shape))
     lhs, rhs, sizes = _k6_inputs(m, k, n, g, dtype, cuda,
                                  empty=shape == "empty")
+    before = dict(ragged_dot.launches_by_path)
     got = ragged_dot(lhs, rhs, sizes)
     want = ragged_dot_plain(lhs, rhs, sizes)
     torch.cuda.synchronize()
+    took = [p for p, c in ragged_dot.launches_by_path.items()
+            if c != before[p]]
+    assert took == ["simple" if shape == "odd" else "tma"]
     assert got.dtype == lhs.dtype and got.shape == (m, n)
     total = int(sizes.sum())
     assert not got[total:].any()
@@ -380,6 +452,83 @@ def test_k6_matches_plain_on_cuda(cuda, shape, dtype):
                                    atol=K6_F32_TOL)
     else:  # the tensor cores' float32 sums against cuBLAS's
         _bf16_close(got, want, K6_F32_TOL)
+
+
+# (M, K, N, G) and how the rows fall into the groups
+K6_EDGES = {
+    "big_groups": ((1000, 256, 256, 6), "uniform"),  # 2-3 row tiles a group
+    "one_group": ((700, 256, 384, 9), "one"),        # every row in group 4
+    "all_empty": ((300, 128, 256, 7), "zero"),       # every size 0
+    "k_tail": ((300, 2056, 256, 5), "uniform"),      # K off BK, on 8
+    "n_tail": ((300, 256, 776, 5), "uniform"),       # N off BN, on 8
+    "past_m": ((400, 128, 128, 6), "past"),          # cut at M, a size < 0
+    "view": ((300, 264, 256, 5), "uniform"),         # lhs off a 128-B line
+    "many_items": ((8192, 128, 1024, 64), "uniform"),  # items > CTAs
+}
+
+
+def _k6_edge(case, dtype, device, seed=37):
+    (m, k, n, g), kind = K6_EDGES[case]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "uniform":
+        e = torch.randint(0, g, (m,), generator=gen)
+        sizes = torch.bincount(e, minlength=g).to(torch.int32)
+    else:
+        sizes = torch.zeros(g, dtype=torch.int32)
+        if kind == "one":
+            sizes[4] = m
+        elif kind == "past":
+            sizes[:] = torch.tensor([100, -5, 250, 80, 0, 30])
+    off = k if case == "view" else 0  # a row in: 16-byte aligned, not 128
+    tdt = DTYPES[dtype][1]
+    buf = torch.randn(m * k + off, generator=gen).to(device, tdt)
+    lhs = buf[off:].view(m, k)
+    rhs = (torch.randn(g, k, n, generator=gen) / k ** 0.5).to(device, tdt)
+    return lhs, rhs, sizes.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(K6_EDGES))
+def test_k6_edge_cases_on_cuda(cuda, case, dtype):
+    """K6's TMA path where a row tile straddles nothing: groups over 64
+    rows, one group holding every row, every size zero, K and N tails,
+    groups cut at row M and a negative size, lhs as a view off a 128-byte
+    line, more work items than CTAs. float32 equals the fmaf chain bit for
+    bit; bfloat16 is within one ulp plus the float32 bound of the plain
+    version."""
+    lhs, rhs, sizes = _k6_edge(case, dtype, cuda)
+    if case == "view":
+        assert lhs.data_ptr() % 128 != 0 and lhs.data_ptr() % 16 == 0
+    before = ragged_dot.launches_by_path["tma"]
+    got = ragged_dot(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    assert ragged_dot.launches_by_path["tma"] == before + 1
+    m = lhs.shape[0]
+    total = min(int(sizes.clamp(min=0).sum()), m)
+    assert not got[total:].any()
+    if case == "all_empty":
+        assert not got.any()
+    want = ragged_dot_plain(lhs, rhs, sizes)
+    if dtype == "float32":
+        assert torch.equal(got, _fmaf_chain(lhs, rhs, sizes))
+        torch.testing.assert_close(got, want, rtol=K6_F32_TOL,
+                                   atol=K6_F32_TOL)
+    else:
+        _bf16_close(got, want, K6_F32_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["odd", "small", "wide"])
+def test_k6_float32_is_the_fmaf_chain_on_cuda(cuda, shape):
+    """float32 K6, on either path, bit for bit the fmaf chain of
+    ``ref.fma_f32`` (the simple kernel at the odd shape, TMA otherwise)."""
+    m, k, n, g = {"odd": (333, 100, 70, 7), "small": (200, 64, 128, 5),
+                  "wide": (640, 512, 512, 12)}[shape]
+    lhs, rhs, sizes = _k6_inputs(m, k, n, g, "float32", cuda,
+                                 empty=shape == "small")
+    got = ragged_dot(lhs, rhs, sizes)
+    assert torch.equal(got, _fmaf_chain(lhs, rhs, sizes))
 
 
 @pytest.mark.gpu
