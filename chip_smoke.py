@@ -200,6 +200,34 @@ Imports only the port (``src/repro_torch``) and runs:
                 16-byte vector path, in float32 and bfloat16, then timed
                 beside ``F.grouped_mm`` (the yardstick only).
                 ``run_moe_path(torch)`` runs the phase alone.
+ 18. recurrent and encoder-decoder — (a) phase 16's serving
+                (``run_lm_serve_path``) over ``recurrentgemma-2b`` at full
+                width and depth (26 layers, d_model 2560, d_rnn 2560, a
+                2048-token window, 3.55 B parameters: RG-LRU blocks beside
+                a ring of local attention), whose hits resume from the
+                per-block snapshots that the prefill keeps (a recurrent
+                state cannot be cut back): the same waves and checks, K1,
+                K2 and K3 launched, the snapshots' bytes per stored prompt,
+                decode against forward also in float32 within 1e-3 (its
+                bfloat16 reading reported: the RG-LRU's decode runs its
+                state and out-projection in float32, its forward in
+                bfloat16, as the reference's do, and at full width the
+                two round 0.35 apart), the card against the CPU at depth
+                13 (one pattern group)
+                in float32 over 48 tokens into ``max_len`` 32, so the ring
+                wraps on both sides; (b) the same over ``rwkv6-1.6b`` (24
+                layers, d_model 2048, 1.58 B parameters; a snapshot is 12.8
+                MB, mostly the float32 wkv state), decode against forward
+                required in both dtypes, the card against the CPU at depth
+                2, and the forward's time (its RWKV loop runs sequentially
+                over time); (c) ``whisper-small`` at full
+                width and depth (12 + 12 layers): ``forward_lm`` over 1500
+                frames and 32 decoder tokens against 32 decode steps with
+                ``enc_kv`` filled by the encoder, within the reference's
+                0.15 (argmax agreement 0.9), decode ms per token, and the
+                card against the CPU in float32 within 1e-3.
+                ``run_recurrent_path(torch)`` and ``run_encdec_path(torch)``
+                run the phase alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -319,6 +347,18 @@ K6_F32_TOL = 1e-4
 BF16_ULP = 2.0 ** -7        # one bf16 ulp is at most 2^-7 of the value
 K6_SOURCE = "src/repro_torch/kernels/csrc/ragged_dot.cu"
 K6_REPLACES = "src/repro/models/moe.py:81"
+# phase 18: (arch, card-against-CPU depth, whether its bfloat16 decode is
+# held to its bfloat16 forward) at full width and depth; the depth keeps
+# whole pattern groups (recurrentgemma's 13-block pattern). The RG-LRU's
+# decode keeps its state and out-projection in float32 where its forward
+# runs them in bfloat16 (the reference's promotions): at full width the
+# two differ by 0.35, each 0.38-0.42 from the float32 result, so its
+# bfloat16 reading is reported and its float32 one required
+REC_SERVE = (("recurrentgemma-2b", 13, False), ("rwkv6-1-6b", 2, True))
+REC_CPU_MAX_LEN = 32        # 48 tokens into it: recurrentgemma's ring wraps
+REC_CPU_TOKENS = 48
+ED_ARCH = "whisper-small"   # forward and decode at full width (phase 18c)
+ED_TOKENS = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -2593,6 +2633,54 @@ def _nbytes(tree) -> int:
                v.numel() * v.element_size() for v in tree.values())
 
 
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _cache_tensors(cache):
+    return [x for field in cache if field for k, x in field.items()
+            if k != "len"]
+
+
+def _state_bytes(cache, pos: int) -> int:
+    """Bytes of decode state one step at position ``pos`` needs: the K/V
+    (or MLA latent) of the positions written so far (of a ring, at most
+    its slots), and every recurrent state read and written back."""
+    n = 0
+    for name, t_dim in (("kv", -3), ("mla", -2)):
+        for k, x in (getattr(cache, name) or {}).items():
+            if k != "len":
+                t = x.shape[t_dim]
+                n += x.numel() * x.element_size() * min(pos, t) // t
+    for field in (cache.rec, cache.rwkv):
+        n += 2 * sum(x.numel() * x.element_size()
+                     for k, x in (field or {}).items() if k != "len")
+    return n
+
+
+def _slot_report(slots) -> dict:
+    """What the prefix index stores: for a recurrent model the per-block
+    snapshots (shared between slots where a hit took them over), else one
+    cache per stored prompt."""
+    lists = [v if isinstance(v, list) else [v] for v in slots.values()]
+    seen = {}
+    for caches in lists:
+        for c in caches:
+            for x in _cache_tensors(c):
+                seen[x.data_ptr()] = x.numel() * x.element_size()
+    per_prompt = [sum(x.numel() * x.element_size() for c in caches
+                      for x in _cache_tensors(c)) for caches in lists]
+    out = {"slots": len(lists), "stored_bytes": sum(seen.values()),
+           "bytes_per_prompt_max": max(per_prompt, default=0)}
+    if any(isinstance(v, list) for v in slots.values()):
+        snaps = [c for caches in lists for c in caches]
+        out.update(snapshots=len({id(c) for c in snaps}),
+                   snapshot_bytes=sum(x.numel() * x.element_size()
+                                      for x in _cache_tensors(snaps[0])))
+    return out
+
+
 class _Routes:
     """Record the top-k experts of every call of the MoE router
     (``repro_torch.models.moe._router``) while it is entered: a probe of
@@ -2628,10 +2716,13 @@ def _forward_drops(routes, cfg, t: int) -> int:
                for r in routes)
 
 
-def decode_vs_forward(torch, weights, cfg, toks, device):
+def decode_vs_forward(torch, weights, cfg, toks, device, tol=LM_FWD_TOL,
+                      logits=None):
     """``tests/test_models_smoke.py``'s check: ``LM_FWD`` decode steps
-    against ``forward_lm`` of the same tokens, logits within ``LM_FWD_TOL``
-    and argmax agreement of at least ``LM_FWD_AGREE``. For an MoE config
+    against ``forward_lm`` of the same tokens, logits within ``tol``
+    (``LM_FWD_TOL``, its own) and argmax agreement of at least
+    ``LM_FWD_AGREE``; the decode and forward logits are appended to the
+    list ``logits`` where one is given. For an MoE config
     (``cfg`` from ``_no_drops``) also the routes: how many (token, layer)
     pick another expert set in the forward than in the steps, and how many
     (token, k) the forward drops past an expert's capacity."""
@@ -2645,13 +2736,20 @@ def decode_vs_forward(torch, weights, cfg, toks, device):
             lg, cache = decode_step(weights, cfg, tokens[:, i:i + 1], cache)
             stepped.append(lg[:, 0].float())
         stepped = torch.stack(stepped, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with _Routes() as fwd:
         full = forward_lm(weights, cfg, {"tokens": tokens}).float()
-    excess, spread = _close_logits(stepped, full, LM_FWD_TOL)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    excess, spread = _close_logits(stepped, full, tol)
     agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
-    out = {"tokens": LM_FWD, "max_abs_diff": spread, "tol": LM_FWD_TOL,
+    out = {"tokens": LM_FWD, "max_abs_diff": spread, "tol": tol,
            "argmax_agree": agree, "agree_min": LM_FWD_AGREE,
+           "forward_ms": forward_ms,
            "ok": excess <= 0 and agree >= LM_FWD_AGREE}
+    if logits is not None:
+        logits.append((stepped, full))
     if cfg.moe is None:
         return out
     n = cfg.n_layers
@@ -2665,10 +2763,19 @@ def decode_vs_forward(torch, weights, cfg, toks, device):
 
 
 def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
-                      tag="lm"):
-    """Phase 16 (and 17a): ``ServeEngine`` over ``cfg`` on ``device`` with
-    the default overlapped tuner (see the module docstring). Returns the
-    report and the kernels' launches on the serving waves.
+                      tag="lm", cpu_max_len=LM_CPU_TOKENS,
+                      cpu_tokens=LM_CPU_TOKENS, f32_forward=False,
+                      bf16_forward=True):
+    """Phase 16 (and 17a, 18a-b): ``ServeEngine`` over ``cfg`` on
+    ``device`` with the default overlapped tuner (see the module
+    docstring). Returns the report and the kernels' launches on the
+    serving waves.
+
+    Decode against forward runs on the engine's weights (bfloat16),
+    required within the reference's 0.15 where ``bf16_forward`` (else
+    reported only), and with ``f32_forward`` also in float32 at full
+    depth, required within ``LM_CPU_TOL``: the cache's check without
+    bfloat16's rounding (the stored float32 weights, no copy).
 
     Card against CPU: float32 on both sides (TF32 off), the same weights
     (cast to float32 once, by ``compute_params``) and tokens, at depth
@@ -2687,6 +2794,7 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
         init_cache,
         init_params,
     )
+    from repro_torch.models.init import block_pattern
     from repro_torch.serve import Request, ServeEngine
 
     rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -2747,7 +2855,9 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
     launches = ops.launch_counts()
     torch.cuda.synchronize()
     timed_out = [r.out for r in done]
-    print(f"{tag}: K launches on the serving waves {launches}", flush=True)
+    rep["stored"] = _slot_report(eng.prefix_index.slots)
+    print(f"{tag}: K launches on the serving waves {launches}; stored "
+          f"{json.dumps(rep['stored'])}", flush=True)
     require(counts_after == [(1, 1), (4, 1)],
             f"{tag}: hits and misses after the waves {counts_after}, "
             f"expected [(1, 1), (4, 1)]")
@@ -2810,13 +2920,10 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
     rep["step_back_to_back_ms"] = wall
     rep["threads"] = threading.active_count()
     # a step reads every weight but the embedding table (one row of it)
-    # and the cache written so far: at the timed wave's mean position
+    # and the decode state at the timed wave's mean position
     emb = eng.params["embed"]
     el = emb.element_size()
-    row = (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim if cfg.mla else
-           2 * cfg.n_kv_heads * cfg.head_dim)
-    cache_bytes = (cfg.n_layers * row * el
-                   * (LM_TIMED_LEN + LM_TIMED_NEW // 2))
+    cache_bytes = _state_bytes(cache, LM_TIMED_LEN + LM_TIMED_NEW // 2)
     step_bytes = (rep["weight_bytes"] - emb.numel() * el
                   + cfg.d_model * el + cache_bytes)
     rep["bound_bytes"] = step_bytes
@@ -2842,10 +2949,25 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
     # decode against forward (tests/test_models_smoke.py's check, with the
     # capacity factor it sets for MoE: no drops on either side)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (1, LM_FWD))
-    dvf = decode_vs_forward(torch, eng.params, _no_drops(cfg), toks, device)
+    logits = []
+    dvf = decode_vs_forward(torch, eng.params, _no_drops(cfg), toks, device,
+                            logits=logits)
     rep["decode_vs_forward"] = dvf
-    require(dvf["ok"], f"{tag}: decode and forward disagree "
-                       f"({json.dumps(dvf)})")
+    require(dvf["ok"] or not bf16_forward,
+            f"{tag}: decode and forward disagree ({json.dumps(dvf)})")
+    if f32_forward:
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        d32 = decode_vs_forward(torch, compute_params(params, c32, device),
+                                c32, toks, device, tol=LM_CPU_TOL,
+                                logits=logits)
+        # how far each bfloat16 mode lies from its float32 result
+        d32["bf16_max_abs_diff"] = {
+            mode: _close_logits(b16, b32, LM_FWD_TOL)[1] for mode, b16, b32
+            in zip(("decode", "forward"), logits[0], logits[1])}
+        rep["decode_vs_forward_f32"] = d32
+        require(d32["ok"], f"{tag}: float32 decode and forward disagree "
+                           f"({json.dumps(d32)})")
+    del logits
     if cfg.moe is not None and dvf["capacity_factor"] != MOE_FWD_CF:
         # the reference's own factor, for the record: here it drops
         cf16 = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -2857,27 +2979,27 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
     del eng, tuner, emb, steps
     gc.collect()
 
-    # the card against the CPU at depth cpu_layers, float32
+    # the card against the CPU at depth cpu_layers (whole pattern groups),
+    # float32, cpu_tokens tokens into a cache of cpu_max_len
+    groups, rest = divmod(cpu_layers, len(block_pattern(cfg)))
+    require(rest == 0, f"{tag}: depth {cpu_layers} cuts a pattern group")
     cfg2 = dataclasses.replace(cfg, n_layers=cpu_layers,
                                compute_dtype="float32")
     p2 = {k: v for k, v in params.items() if k != "layers"}
-    p2["layers"] = {"blk0_attn": {k: v[:cpu_layers] for k, v in
-                                  params["layers"]["blk0_attn"].items()}}
-    host = {k: v.cpu() for k, v in p2.items() if k != "layers"}
-    host["layers"] = {"blk0_attn": {k: v.cpu() for k, v in
-                                    p2["layers"]["blk0_attn"].items()}}
+    p2["layers"] = _map_tree(lambda v: v[:groups], params["layers"])
+    host = _map_tree(lambda v: v.cpu(), p2)
     p2 = compute_params(p2, cfg2, device)
     host = compute_params(host, cfg2, "cpu")
     require(not torch.backends.cuda.matmul.allow_tf32,
             f"{tag}: TF32 matmuls are on; float32 on the card must be "
             f"float32")
-    caches = [init_cache(cfg2, 1, LM_CPU_TOKENS, device=d)
+    caches = [init_cache(cfg2, 1, cpu_max_len, device=d)
               for d in (device, "cpu")]
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, 4)
     tok_dev = [_lm_tokens(torch, prompt[:1], d) for d in (device, "cpu")]
     worst, spread, gen = -1.0, 0.0, []
     t0 = time.perf_counter()
-    for i in range(LM_CPU_TOKENS):
+    for i in range(cpu_tokens):
         lg_c, caches[0] = decode_step(p2, cfg2, tok_dev[0], caches[0])
         lg_h, caches[1] = decode_step(host, cfg2, tok_dev[1], caches[1])
         e, s = _close_logits(lg_c.cpu(), lg_h, LM_CPU_TOL)
@@ -2888,7 +3010,8 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
         nxt = [int(prompt[i + 1])] if i + 1 < len(prompt) else [pick_c]
         gen.append(pick_c)
         tok_dev = [_lm_tokens(torch, nxt, d) for d in (device, "cpu")]
-    rep["card_vs_cpu"] = {"n_layers": cpu_layers, "steps": LM_CPU_TOKENS,
+    rep["card_vs_cpu"] = {"n_layers": cpu_layers, "steps": cpu_tokens,
+                          "max_len": cpu_max_len,
                           "max_abs_diff": spread, "tol": LM_CPU_TOL,
                           "greedy": gen, "s": time.perf_counter() - t0}
     require(worst <= 0, f"{tag}: card and CPU logits differ by {spread} at "
@@ -2902,6 +3025,7 @@ def run_lm_serve_path(torch, cfg, device="cuda", cpu_layers=LM_CPU_LAYERS,
             f"{tag}: {rep['left_bytes']} bytes still allocated after "
             f"tear-down")
     rep["hits_misses"] = counts_after
+    rep["card"] = card_line()
     print(f"{tag} serve " + json.dumps(rep), flush=True)
     return rep, launches
 
@@ -3223,6 +3347,128 @@ def run_moe_path(torch, device="cuda"):
             err, timing)
 
 
+# ---------------------------------------------------------------------------
+# recurrent and encoder-decoder families (phase 18)
+# ---------------------------------------------------------------------------
+
+
+def run_recurrent_path(torch, device="cuda"):
+    """Phase 18a-b: ``run_lm_serve_path`` over each of ``REC_SERVE`` at
+    full width and depth, decode against forward also in float32, the
+    card against the CPU at its depth there, ``REC_CPU_TOKENS`` tokens
+    into ``REC_CPU_MAX_LEN``. Returns the reports and the launches by
+    path."""
+    from repro_torch.configs import get_config
+
+    reps, launches = {}, {}
+    for arch, cpu_layers, bf16_forward in REC_SERVE:
+        tag = arch.split("-")[0]
+        rep, launches[f"{tag}_serve"] = run_lm_serve_path(
+            torch, get_config(arch), device, cpu_layers=cpu_layers, tag=tag,
+            cpu_max_len=REC_CPU_MAX_LEN, cpu_tokens=REC_CPU_TOKENS,
+            f32_forward=True, bf16_forward=bf16_forward)
+        require(rep["stored"].get("snapshots", 0) > 0,
+                f"{tag}: the prefix index stored no snapshots")
+        reps[arch] = rep
+    return reps, launches
+
+
+def run_encdec_path(torch, device="cuda"):
+    """Phase 18c: ``ED_ARCH`` at full width and depth. ``forward_lm`` over
+    ``ENC_FRAMES`` frames and ``ED_TOKENS`` decoder tokens against as many
+    decode steps with ``enc_kv`` from the encoder (cross-attention masks no
+    slot, so the two agree only over the full 1500 frames), within the
+    reference's ``LM_FWD_TOL`` and ``LM_FWD_AGREE``; decode ms per token
+    between CUDA events; then the card against the CPU in float32 (the
+    forward and every step, within ``LM_CPU_TOL``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (
+        compute_params,
+        decode_step,
+        forward_lm,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.models.transformer import ENC_FRAMES, _encoder_kv
+
+    cfg = get_config(ED_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=device)
+    rng = np.random.default_rng(3)
+    frames = rng.normal(0, 1, (1, ENC_FRAMES, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, ED_TOKENS)
+
+    def run(weights, c, dev, timed=False):
+        """Forward logits, decode logits and the per-step ms on ``dev``."""
+        batch = {"enc_frames": torch.as_tensor(frames, device=dev),
+                 "dec_tokens": _lm_tokens(torch, toks, dev)}
+        ms = {}
+        t0 = time.perf_counter()
+        full = forward_lm(weights, c, batch).float()
+        if timed:
+            torch.cuda.synchronize()
+            ms["forward"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+        cache = init_cache(c, 1, ED_TOKENS, device=dev)._replace(
+            enc_kv=_encoder_kv(weights, c, batch["enc_frames"]))
+        if timed:
+            torch.cuda.synchronize()
+            ms["encoder_kv"] = (time.perf_counter() - t0) * 1e3
+        steps, events = [], []
+        for i in range(ED_TOKENS):
+            lg, cache = decode_step(weights, c, batch["dec_tokens"][:, i:i + 1],
+                                    cache)
+            steps.append(lg[:, 0].float())
+            if timed:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        if timed:
+            torch.cuda.synchronize()
+            ms["decode"] = [a.elapsed_time(b) for a, b in
+                            zip(events, events[1:])]
+        return full, torch.stack(steps, 1), ms
+
+    full, stepped, ms = run(compute_params(params, cfg, device), cfg, device,
+                            timed=True)
+    excess, spread = _close_logits(stepped, full, LM_FWD_TOL)
+    agree = float((full.argmax(-1) == stepped.argmax(-1)).float().mean())
+    rep = {"arch": cfg.name, "n_params": cfg.n_params(),
+           "frames": ENC_FRAMES, "tokens": ED_TOKENS,
+           "forward_ms": ms["forward"], "encoder_kv_ms": ms["encoder_kv"],
+           "decode_ms": {"p50": float(np.percentile(ms["decode"], 50)),
+                         "p99": float(np.percentile(ms["decode"], 99))},
+           "decode_vs_forward": {"max_abs_diff": spread, "tol": LM_FWD_TOL,
+                                 "argmax_agree": agree}}
+    require(excess <= 0 and agree >= LM_FWD_AGREE,
+            f"encdec: decode and forward disagree ({json.dumps(rep)})")
+
+    # the card against the CPU, float32 at full depth
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card = run(compute_params(params, c32, device), c32, device)
+    host = run(compute_params(_map_tree(lambda v: v.cpu(), params), c32,
+                              "cpu"), c32, "cpu")
+    worst, spread = -1.0, 0.0
+    for a, b in zip(card[:2], host[:2]):
+        e, d = _close_logits(a.cpu(), b, LM_CPU_TOL)
+        worst, spread = max(worst, e), max(spread, d)
+    rep["card_vs_cpu"] = {"max_abs_diff": spread, "tol": LM_CPU_TOL}
+    require(worst <= 0, f"encdec: card and CPU logits differ by {spread}")
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params, card, full, stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["left_bytes"] = torch.cuda.memory_allocated() - base
+    require(rep["left_bytes"] < LM_LEFT_BYTES,
+            f"encdec: {rep['left_bytes']} bytes still allocated")
+    rep["card"] = card_line()
+    print("encdec " + json.dumps(rep), flush=True)
+    return rep
+
+
 def main() -> int:
     import torch
 
@@ -3346,6 +3592,8 @@ def main() -> int:
     _, p_launches = run_pipeline(torch)
     _, lm_launches = run_lm_serve_path(torch, get_config(LM_ARCH))
     _, moe_launches, k6_err, k6_timing = run_moe_path(torch)
+    _, rec_launches = run_recurrent_path(torch)
+    run_encdec_path(torch)
     timing["ragged_dot"] = k6_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
@@ -3365,7 +3613,7 @@ def main() -> int:
              "forecaster_k16": fc_launches, "gateway": g_launches,
              "async_maintenance": a_launches, "agent": ag_launches,
              "baselines": b_launches, "pipeline": p_launches,
-             "lm_serve": lm_launches, **moe_launches}
+             "lm_serve": lm_launches, **moe_launches, **rec_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

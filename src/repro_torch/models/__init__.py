@@ -1,8 +1,9 @@
-"""The LM substrate (port of ``repro/models``): the dense, VLM and MoE
-families' forward and decode paths (GQA or MLA attention, a SwiGLU MLP or
-an MoE layer), the parameter descriptors of all ten architectures, random
-init and the conversion of a numpy parameter tree."""
-from repro_torch.models.attention import MLACache, mla
+"""The LM substrate (port of ``repro/models``): the forward and decode
+paths of all ten architectures (GQA or MLA attention, a SwiGLU MLP or an
+MoE layer, RG-LRU blocks beside a local-window ring, RWKV-6 blocks, and
+the whisper encoder-decoder with cross-attention), their parameter
+descriptors, random init and the conversion of a numpy parameter tree."""
+from repro_torch.models.attention import MLACache, cross_attention, mla
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.init import init_params, param_descriptors
@@ -11,6 +12,14 @@ from repro_torch.models.moe import (
     moe_dense_chunked,
     moe_layer,
     moe_ragged,
+)
+from repro_torch.models.recurrent import (
+    RGLRUState,
+    RWKVState,
+    rglru_block_seq,
+    rglru_block_step,
+    rwkv_channelmix,
+    rwkv_timemix_seq,
 )
 from repro_torch.models.transformer import (
     DecodeCache,
@@ -32,6 +41,13 @@ __all__ = [
     "DecodeCache",
     "mla",
     "MLACache",
+    "cross_attention",
+    "RGLRUState",
+    "RWKVState",
+    "rglru_block_seq",
+    "rglru_block_step",
+    "rwkv_timemix_seq",
+    "rwkv_channelmix",
     "moe_layer",
     "moe_dense",
     "moe_dense_chunked",

@@ -1,21 +1,24 @@
 """Attention (port of ``repro/models/attention.py``): GQA/MQA/MHA with an
-optional bias, local window and softcap, and MLA (DeepSeek-V2 latent
-attention), with and without a cache.
+optional bias, local window and softcap, MLA (DeepSeek-V2 latent
+attention), with and without a cache, and cross-attention (the whisper
+decoder's).
 
 All functions take *flat* projection weights (d_model, n*head_dim), as the
 reference does. The arithmetic is the reference's own, op for op, in plain
 torch (see ``attention_core``); no library attention kernel replaces it,
 because none rounds the scale, the scores and the probabilities where the
-reference does. Cross-attention comes with the encoder-decoder's slice
-(``ROADMAP.md`` queue 1). The reference's sharding ``constrain`` hook has
-no counterpart on one card.
+reference does. The reference's sharding ``constrain`` hook has no
+counterpart on one card.
 
 The caches (``KVCache``, ``MLACache``) differ from the reference in one
 way: their ``length`` is a host integer and new entries are written into
 the cache's tensors in place (the reference's ``dynamic_update_slice``
 returns new arrays). Copying the cache on every token would cost more than
 the step at full width. A caller that keeps a cache while another decodes
-from the same tensors must clone it (``ServeEngine`` does).
+from the same tensors must clone it (``ServeEngine`` does). A windowed
+cache may be a ring (``ring=True`` in ``_gqa``, the reference's
+``_attn_block_decode_abs``): its ``length`` counts every token written,
+and the token at absolute position p sits in slot p % T.
 """
 from __future__ import annotations
 
@@ -132,9 +135,43 @@ def _attend_cached(q, k, v, cache: KVCache, window: int, cap: float):
     return out, KVCache(cache.k, cache.v, n)
 
 
+def _ring_mask(t: int, abs_len: int, window: int, device=None):
+    """(1, t) additive mask of a ring of t slots for the query at absolute
+    position ``abs_len``, already written at slot ``abs_len % t``: slot i
+    holds the position p with p % t == i, p <= abs_len, and is visible
+    when 0 <= p and p > abs_len - window (``NEG_INF``, the reference's
+    literal -2.0e38, elsewhere)."""
+    slot = torch.arange(t, device=device)
+    cycle = (abs_len // t) * t
+    abs_pos = torch.where(slot <= abs_len % t, cycle + slot, cycle - t + slot)
+    ok = (abs_pos >= 0) & (abs_pos <= abs_len) & (abs_pos > abs_len - window)
+    return torch.where(ok, 0.0, NEG_INF)[None, :]
+
+
+def _attend_ring(q, k, v, cache: KVCache, window: int, cap: float):
+    """One token into a ring of T = ``cache.k.shape[1]`` slots, written in
+    place at ``cache.length % T``, attending over every slot masked by
+    absolute position (``_ring_mask``); past T tokens the ring wraps. The
+    reference masks every row of a multi-token step at the first token's
+    position and clamps a write that runs past the ring's end, so more
+    than one token a step raises here."""
+    s = q.shape[1]
+    if s != 1:
+        raise ValueError(f"a windowed ring cache takes one token a step, "
+                         f"got {s}")
+    n = cache.length
+    t = cache.k.shape[1]
+    cache.k[:, n % t] = k[:, 0]
+    cache.v[:, n % t] = v[:, 0]
+    out = attention_core(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                         _ring_mask(t, n, window, q.device), cap)
+    return out, KVCache(cache.k, cache.v, n + 1)
+
+
 def _gqa(x, p, cfg, tables, cache: Optional[KVCache] = None,
-         window: int = 0, causal: bool = True):
-    """``gqa`` with the RoPE tables already computed (one per forward)."""
+         window: int = 0, causal: bool = True, ring: bool = False):
+    """``gqa`` with the RoPE tables already computed (one per forward);
+    ``ring`` makes a windowed cache a ring (``_attend_ring``)."""
     b, s, d = x.shape
     dh = cfg.head_dim
     cd = x.dtype
@@ -167,6 +204,9 @@ def _gqa(x, p, cfg, tables, cache: Optional[KVCache] = None,
                 mask = torch.zeros((s, s), device=x.device)
             out = attention_core(q, k, v, mask, cfg.attn_logit_softcap)
         new_cache = None
+    elif ring:
+        out, new_cache = _attend_ring(q, k, v, cache, window,
+                                      cfg.attn_logit_softcap)
     else:
         out, new_cache = _attend_cached(q, k, v, cache, window,
                                         cfg.attn_logit_softcap)
@@ -284,3 +324,17 @@ def mla(x, p, cfg, positions, cache: Optional[MLACache] = None):
     With a cache, x is the new chunk written at cache.length (in place).
     Returns (out, new_cache)."""
     return _mla(x, p, cfg, mla_tables(cfg, positions, x.dtype), cache)
+
+
+def cross_attention(x, enc_kv, p, cfg):
+    """Whisper decoder cross-attn; enc_kv = (k, v) precomputed from the
+    encoder, (B, T, Hkv, dh) each. Nothing is masked: every one of the T
+    slots is attended, written or not."""
+    b, s, d = x.shape
+    dh = cfg.head_dim
+    cd = x.dtype
+    q = torch.matmul(x, p["wq_x"].to(cd)).reshape(b, s, cfg.n_heads, dh)
+    k, v = enc_kv
+    out = attention_core(q, k.to(cd), v.to(cd), None)
+    out = out.reshape(b, s, cfg.n_heads * dh)
+    return torch.matmul(out, p["wo_x"].to(cd))

@@ -1,11 +1,10 @@
 """Parameter descriptors: one tree of (shape, dtype, logical_axes) per model
 (port of ``repro/models/init.py``).
 
-The descriptors are shapes only, so they cover all ten architectures,
-including the families whose forward is not ported yet: ``n_params`` and
-``params_from_numpy`` work for every config. The same tree drives random
-init here; the reference's abstract init (the dry-run's shape structs)
-belongs to the launch tooling.
+The descriptors are shapes only and cover all ten architectures:
+``n_params`` and ``params_from_numpy`` work for every config. The same
+tree drives random init here; the reference's abstract init (the
+dry-run's shape structs) belongs to the launch tooling.
 
 Per-layer leaves are STACKED over a leading "layers" axis, as in the
 reference, so a parameter tree converted from the JAX package keeps its

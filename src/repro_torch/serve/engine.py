@@ -10,14 +10,14 @@ Lookups run batched once per admission wave; on CUDA they run the fused
 locate (K1) and BMAT rank (K2) kernels, and the tuner's forecaster its
 E-step (K3).
 
-``ServeEngine`` decodes greedily over the port's dense, VLM and MoE LM
-substrate (``repro_torch.models``; GQA or MLA caches), with two departures
-from the reference, both about the stored caches (``ROADMAP.md`` §3):
+``ServeEngine`` decodes greedily over the port's LM substrate
+(``repro_torch.models``: every family, with KV, MLA, ring, recurrent or
+cross-attention caches), with two departures from the reference, both
+about the stored caches (``ROADMAP.md`` §3):
 
-- ``decode_step`` writes K/V (or MLA's latent and rotary key) into the
-  cache's tensors in place, so the engine clones a cache when it admits it
-  and when a hit takes it: no stored cache is ever a tensor that a decode
-  writes to.
+- ``decode_step`` writes its cache's tensors in place, so the engine
+  clones a cache when it admits it and when a hit takes it: no stored
+  cache is ever a tensor that a decode writes to.
 - A hit resumes at the matched prefix, ``n_blocks * every`` tokens, not
   at the stored prompt's full length, so a prompt that differs from the
   stored one after the last matched block decodes its own tokens (the
@@ -25,6 +25,16 @@ from the reference, both about the stored caches (``ROADMAP.md`` §3):
   past the prefix is empty, the last matched token is decoded again for
   its logits. Where the stored prompt is exactly the matched prefix, the
   tokens are the reference's.
+
+A KV or MLA cache is cut back to the prefix (``DecodeCache.clone``). A
+recurrent state (RG-LRU, RWKV-6; and a ring that has wrapped) cannot be
+cut, so for those families the prefill keeps a snapshot of the cache
+before each block's last token, at lengths ``b * every - 1``, and stores
+the snapshots in the slot; a hit on n blocks resumes from snapshot n and
+decodes from token ``n * every - 1`` on. A hit's output is then the cold
+run's, bit for bit, as for the cuttable caches. The snapshots a hit
+takes over from another slot are shared (nothing writes to a snapshot:
+a hit clones it before decoding).
 """
 from __future__ import annotations
 
@@ -276,6 +286,13 @@ class ServeEngine:
         """Idempotent; safe concurrently with in-flight gateway flushes."""
         self.prefix_index.close()
 
+    @property
+    def keeps_snapshots(self) -> bool:
+        """Whether a stored prompt keeps per-block snapshots (a cache
+        with a recurrent state) instead of its cache (which a hit cuts
+        back)."""
+        return self.cfg.rglru is not None or self.cfg.rwkv is not None
+
     def _decode(self, tok, cache):
         return decode_step(self.params, self.cfg, tok, cache)
 
@@ -301,8 +318,14 @@ class ServeEngine:
                 raise ValueError(f"request {req.rid} has an empty prompt")
             fps = prefix_fingerprints(req.prompt, every)
             sid, nblk = self.prefix_index.match(fps)
+            snaps = [] if self.keeps_snapshots else None
             # match() only returns slots that are still resident
-            if sid >= 0:
+            if sid >= 0 and snaps is not None:
+                # resume before the last matched token, from its snapshot
+                snaps = self.prefix_index.slots[sid][:nblk]
+                start = nblk * every - 1
+                cache = snaps[-1].clone()
+            elif sid >= 0:
                 # resume at the matched prefix; an empty tail decodes the
                 # last matched token again, for its logits
                 start = min(nblk * every, len(req.prompt) - 1)
@@ -313,9 +336,12 @@ class ServeEngine:
                                    device=self.device)
             toks = self._tokens(req.prompt)
             for i in range(start, toks.shape[1]):
+                if snaps is not None and len(snaps) < (i + 1) // every:
+                    snaps.append(cache.clone())  # before token b*every-1
                 logits, cache = self._decode(toks[:, i:i + 1], cache)
             # the stored copy is never a tensor that a decode writes to
-            self.prefix_index.admit(fps, cache.clone())
+            self.prefix_index.admit(
+                fps, snaps if snaps is not None else cache.clone())
             out = []
             tok = torch.argmax(logits[:, -1:], dim=-1)
             for i in range(req.max_new_tokens):

@@ -3,19 +3,26 @@ card where marked).
 
 Both engines serve the smoke ``deepseek-7b`` at float32 compute with the
 same weights (a numpy tree from a seed) and no tuner, unless a case says
-otherwise; the ``serve_lm`` waves, the aliasing case and the cold-hit case
-also serve the two MoE families (``qwen3-moe-30b-a3b``: GQA and MoE;
-``deepseek-v2-236b``: MLA and MoE). Greedy tokens are compared exactly.
+otherwise; the ``serve_lm`` waves, the consistency case, the aliasing case
+and the cold-hit case also serve the two MoE families
+(``qwen3-moe-30b-a3b``: GQA and MoE; ``deepseek-v2-236b``: MLA and MoE),
+the two recurrent ones (``recurrentgemma-2b``: RG-LRU and a local-window
+ring; ``rwkv6-1-6b``) and the encoder-decoder (``whisper-small``, whose
+cross K/V stay zero in both engines). Greedy tokens are compared exactly.
 
 Two departures of the port are pinned here (``ROADMAP.md`` §3):
 - the port clones a decode cache when it admits it and when a hit takes it,
-  because its ``decode_step`` writes K/V in place: a stored cache is never
-  written by a later decode (``test_stored_cache_is_never_written``);
+  because its ``decode_step`` writes its tensors in place: a stored cache
+  is never written by a later decode
+  (``test_stored_cache_is_never_written``);
 - a hit resumes at the matched prefix, not at the stored prompt's length,
   so where the reference reuses another prompt's tokens the port's output
-  equals a cold run (``test_hit_past_the_matched_prefix_decodes_cold``).
-  Where every hit's stored prompt is exactly the matched prefix, the
-  tokens are the reference's.
+  equals a cold run (``test_hit_past_the_matched_prefix_decodes_cold``);
+  for a recurrent state, which cannot be cut back, from the snapshot the
+  prefill kept before the last matched token
+  (``test_recurrent_hit_resumes_from_a_snapshot``). Where every hit's
+  stored prompt is exactly the matched prefix, the tokens are the
+  reference's.
 
 Every join here has a timeout, and running into it fails the test.
 """
@@ -40,8 +47,11 @@ from tests.test_torch_models import numpy_params
 
 JOIN_S = 60.0
 MAX_LEN = 128
-# the dense model and the two MoE families (GQA + MoE, MLA + MoE)
-ARCHS = ["deepseek-7b", "qwen3-moe-30b-a3b", "deepseek-v2-236b"]
+# the dense model, the two MoE families (GQA + MoE, MLA + MoE), the two
+# recurrent ones and the encoder-decoder
+ARCHS = ["deepseek-7b", "qwen3-moe-30b-a3b", "deepseek-v2-236b",
+         "recurrentgemma-2b", "rwkv6-1-6b", "whisper-small"]
+RECURRENT = ["recurrentgemma-2b", "rwkv6-1-6b"]
 
 
 @pytest.fixture(autouse=True)
@@ -145,10 +155,12 @@ def test_serve_lm_waves_match_jax(model):
     teng.close()
 
 
+@pytest.mark.parametrize("model", ARCHS, indirect=True)
 def test_prefix_cache_consistency_matches_jax(model):
     """``tests/test_system.py::test_serve_engine_prefix_cache_consistency``
     on both engines: a 40-token prompt, cold and then a hit (the port
-    resumes at 32, the reference at 40), the same tokens everywhere."""
+    resumes at 32, or at 31 from a snapshot, the reference at 40), the
+    same tokens everywhere."""
     prompt = np.random.default_rng(9).integers(0, model[0].vocab, 40)
     prompt = prompt.astype(np.int32)
     jeng, teng = _jax_engine(model), _port_engine(model)
@@ -161,16 +173,25 @@ def test_prefix_cache_consistency_matches_jax(model):
     teng.close()
 
 
+def _slot_tensors(slot):
+    """The tensors a stored slot holds: a cache's, or its snapshots'."""
+    caches = slot if isinstance(slot, list) else [slot]
+    return [x for c in caches for field in c if field
+            for k, x in field.items() if k != "len"]
+
+
 @pytest.mark.parametrize("device", ["cpu", pytest.param(
     "cuda", marks=pytest.mark.gpu)])
 @pytest.mark.parametrize("model", ARCHS, indirect=True)
 def test_stored_cache_is_never_written(model, device, request):
     """A (32 tokens) is admitted; B = A + 16 tokens hits A and extends it;
     C = A + 16 other tokens hits on A's two blocks and decodes its own tail
-    from position 32; then B again. Were the stored caches shared with the
-    live one, C's tail would overwrite positions 32..47 that B's stored
-    cache relies on, and B's second run would read them. B's second output
-    equals its first and the JAX engine's."""
+    from position 32 (31 from A's snapshot); then B again. Were the stored
+    caches or snapshots shared with the live one, C's tail would overwrite
+    what B's slot relies on (A's, for a snapshot), and B's second run or
+    C's would read it. Every stored tensor keeps its value after it is
+    admitted; B's second output equals its first and the JAX engine's, and
+    C's equals its cold run's."""
     if device == "cuda":
         request.getfixturevalue("cuda")
     rng = np.random.default_rng(21)
@@ -179,16 +200,27 @@ def test_stored_cache_is_never_written(model, device, request):
     b = np.concatenate([a, rng.integers(0, vocab, 16).astype(np.int32)])
     c = np.concatenate([a, rng.integers(0, vocab, 16).astype(np.int32)])
     teng = _port_engine(model, device=device)
-    outs = [_serve(teng, Request, [p], 6)[0][0] for p in (a, b, c, b)]
+    outs, kept = [], []
+    for p in (a, b, c, b):
+        outs.append(_serve(teng, Request, [p], 6)[0][0])
+        for sid, slot in teng.prefix_index.slots.items():
+            if sid >= len(kept):
+                kept.append([x.clone() for x in _slot_tensors(slot)])
     assert (teng.prefix_index.hits, teng.prefix_index.misses) == (3, 1)
     assert outs[3] == outs[1]
+    slots = list(teng.prefix_index.slots.values())
+    for slot, copy in zip(slots, kept):
+        assert all(torch.equal(x, y) for x, y in
+                   zip(_slot_tensors(slot), copy))
+    assert outs[2] == _cold(lambda: _port_engine(model, device=device),
+                            Request, c, 6)
     jeng = _jax_engine(model)
     jouts = [_serve(jeng, JRequest, [p], 6)[0][0] for p in (a, b)]
     assert outs[:2] == jouts
-    caches = list(teng.prefix_index.slots.values())
-    ptrs = {x.data_ptr() for c in caches for field in (c.kv, c.mla)
-            for k, x in (field or {}).items() if k != "len"}
-    assert len(ptrs) == 2 * len(caches) == 8  # no two slots share a tensor
+    if not teng.keeps_snapshots:  # a hit's snapshots are shared, never written
+        ptrs = {x.data_ptr() for slot in slots for x in _slot_tensors(slot)}
+        per_cache = len(_slot_tensors(slots[0]))
+        assert len(ptrs) == per_cache * len(slots)  # no two share a tensor
     teng.close()
 
 
@@ -256,10 +288,42 @@ def test_engine_defaults_to_cuda(model, monkeypatch):
         ServeEngine(tc, params, tuner=None)
 
 
-def test_engine_refuses_unported_family():
-    cfg = smoke_config("rwkv6-1-6b")
-    with pytest.raises(NotImplementedError, match="RWKV-6"):
-        ServeEngine(cfg, {}, tuner=None, device="cpu")
+@pytest.mark.parametrize("model", RECURRENT, indirect=True)
+def test_recurrent_hit_resumes_from_a_snapshot(model):
+    """A recurrent state cannot be cut back, so the prefill keeps a clone
+    of the cache before each block's last token (lengths 15, 31, 47) and
+    the slot stores them; a hit on n blocks clones snapshot n and decodes
+    from token 16 n - 1: one step more than a cut cache would take, and
+    the tail. The hit's prefix snapshots are the stored slot's own
+    (shared: nothing writes to them)."""
+    rng = np.random.default_rng(22)
+    vocab = model[0].vocab
+    a = rng.integers(0, vocab, 50).astype(np.int32)
+    b = np.concatenate([a[:40], rng.integers(0, vocab, 9).astype(np.int32)])
+    eng = _port_engine(model)
+    assert eng.keeps_snapshots
+    steps = []
+    decode = eng._decode
+
+    def counted(tok, cache):
+        steps.append(cache.length)
+        return decode(tok, cache)
+
+    eng._decode = counted
+    _serve(eng, Request, [a], 4)
+    [snaps] = eng.prefix_index.slots.values()
+    assert [c.length for c in snaps] == [15, 31, 47]
+    assert all(not c.cuttable for c in snaps)
+    del steps[:]
+    out, counts = _serve(eng, Request, [b], 4)
+    assert counts == (1, 1)
+    assert steps[0] == 31 and len(steps) == (49 - 31) + 3
+    stored = eng.prefix_index.slots[1]
+    assert [c.length for c in stored] == [15, 31, 47]
+    assert stored[0] is snaps[0] and stored[1] is snaps[1]
+    assert stored[2] is not snaps[2]
+    assert out[0] == _cold(lambda: _port_engine(model), Request, b, 4)
+    eng.close()
 
 
 @pytest.mark.gpu

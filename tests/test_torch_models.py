@@ -11,7 +11,9 @@ bfloat16 compute the bound is the reference's own for decode against
 forward (``tests/test_models_smoke.py``): 0.15, with greedy (argmax)
 agreement on at least 90% of positions between the port's decode and its
 forward; across the frameworks, greedy picks agree up to bf16 ties
-(``_same_greedy``).
+(``_same_greedy``). ``recurrentgemma-2b`` runs 80 tokens (past its smoke
+window of 64, so the local mask binds and the decode ring wraps); there
+the bfloat16 bound is ``BF16_LONG_TOL``.
 """
 import dataclasses
 
@@ -30,6 +32,7 @@ from repro.models import decode_step as jdecode
 from repro.models import forward_lm as jforward
 from repro.models import init_cache as jinit_cache
 from repro.models.init import param_descriptors as jdescriptors
+from repro.models.transformer import DecodeCache as JDecodeCache
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.models import (
     compute_params,
@@ -43,17 +46,23 @@ from repro_torch.models import (
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import ENC_FRAMES, _encoder_kv
 
 F32_TOL = 1e-4
 BF16_TOL = 0.15
 BF16_AGREE = 0.9
 DENSE = ["deepseek-7b", "phi4-mini-3-8b", "granite-20b", "qwen1-5-110b"]
 MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-236b"]
-UNPORTED = {
-    "recurrentgemma-2b": "RG-LRU",
-    "rwkv6-1-6b": "RWKV-6",
-    "whisper-small": "encoder-decoder",
-}
+RECURRENT = ["recurrentgemma-2b", "rwkv6-1-6b"]
+ENCDEC = ["whisper-small"]
+ALL = DENSE + ["llava-next-34b"] + MOE + RECURRENT + ENCDEC
+# bfloat16 over recurrentgemma's 80 tokens: the reference's own decode and
+# forward differ by up to 0.198 on these inputs (allclose at 0.15 fails by
+# 0.037; its own test decodes 12 tokens), so the port is held to 0.25
+# against both, and to the reference's 0.15 everywhere else
+BF16_LONG_TOL = 0.25
+# tokens of the forward and decode checks: past recurrentgemma's window
+SEQ = {"recurrentgemma-2b": 80}
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -81,13 +90,17 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _close(a, b, dtype, what=""):
-    tol = F32_TOL if dtype == "float32" else BF16_TOL
+def _close(a, b, dtype, what="", bf16_tol=BF16_TOL):
+    tol = F32_TOL if dtype == "float32" else bf16_tol
     np.testing.assert_allclose(_np(a), _np(b), rtol=tol, atol=tol,
                                err_msg=what)
 
 
-def _same_greedy(a, b):
+def _bf16_tol(arch):
+    return BF16_LONG_TOL if arch in SEQ else BF16_TOL
+
+
+def _same_greedy(a, b, tol=BF16_TOL):
     """bfloat16 logits of the two frameworks pick the same greedy tokens up
     to ties: where the picks differ, each side's pick scores within
     ``BF16_TOL`` of the other side's top logit. (Counting agreement would
@@ -98,7 +111,7 @@ def _same_greedy(a, b):
     rows = np.arange(len(a))
     for x, y in ((a, b), (b, a)):
         pick = x.argmax(-1)
-        assert (y[rows, pick] >= y.max(-1) - BF16_TOL).all()
+        assert (y[rows, pick] >= y.max(-1) - tol).all()
 
 
 def _close_routed(a, b, what=""):
@@ -162,7 +175,9 @@ def _layer0(jp, tp):
     return pick(jp), pick(tp)
 
 
-def _batch(cfg, seed, b=2, s=12):
+def _batch(cfg, seed, b=2, s=12, frames=24):
+    """Tokens and the batch in both packages; for the encoder-decoder the
+    tokens are "dec_tokens" beside ``frames`` frame embeddings."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
     jb = {"tokens": jnp.asarray(toks)}
@@ -171,7 +186,38 @@ def _batch(cfg, seed, b=2, s=12):
         img = rng.normal(0, 1, (b, cfg.vlm.n_image_tokens, cfg.d_model))
         jb["image_embeds"] = jnp.asarray(img, jnp.float32)
         tb["image_embeds"] = torch.from_numpy(img.astype(np.float32))
+    if cfg.encdec is not None:
+        enc = rng.normal(0, 1, (b, frames, cfg.d_model)).astype(np.float32)
+        jb = {"enc_frames": jnp.asarray(enc), "dec_tokens": jb["tokens"]}
+        tb = {"enc_frames": torch.from_numpy(enc),
+              "dec_tokens": tb["tokens"]}
     return toks, jb, tb
+
+
+def _jax_encoder_kv(jp, jc, frames):
+    """The reference's encoder and per-layer cross K/V
+    (``_forward_encdec``'s lines), as ``DecodeCache.enc_kv``: the JAX
+    package has no function that fills it."""
+    cd = jnp.dtype(jc.compute_dtype)
+    t = frames.shape[1]
+    x = frames.astype(cd) + jp["enc_pos"][:t].astype(cd)[None]
+    pos = jnp.arange(t, dtype=jnp.int32)[None, :]
+
+    def enc_fn(x, p):
+        h = jlayers.rms_norm(x, p["ln1"], jc.norm_eps)
+        a, _ = jattn.gqa(h, p, jc, pos, None, 0, causal=False)
+        x = x + a
+        h = jlayers.rms_norm(x, p["ln2"], jc.norm_eps)
+        return x + jlayers.swiglu(h, p["w1"], p["w3"], p["w2"], cd), None
+
+    x, _ = jax.lax.scan(enc_fn, x, jp["enc_layers"])
+    enc = jlayers.rms_norm(x, jp["enc_norm"], jc.norm_eps)
+    b, heads = frames.shape[0], (jc.n_kv_heads, jc.head_dim)
+    dec = jp["dec_layers"]
+    k = jnp.einsum("btd,ldn->lbtn", enc, dec["wk_x"].astype(cd))
+    v = jnp.einsum("btd,ldn->lbtn", enc, dec["wv_x"].astype(cd))
+    return {"k": k.reshape(k.shape[:3] + heads),
+            "v": v.reshape(v.shape[:3] + heads)}
 
 
 # ------------------------------------------------------------------ layers
@@ -326,22 +372,23 @@ def test_chunked_self_attention_matches_jax(monkeypatch, causal, window):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
+@pytest.mark.parametrize("arch", ALL)
 def test_forward_lm_matches_jax(arch, dtype):
     jc, tc = _cfgs(arch, dtype)
     jp, tp = _params(arch)
-    toks, jb, tb = _batch(jc, 16)
+    s = SEQ.get(arch, 12)
+    toks, jb, tb = _batch(jc, 16, s=s)
     a = np.asarray(jforward(jp, jc, jb), np.float32)
     b = forward_lm(tp, tc, tb)
     extra = jc.vlm.n_image_tokens if jc.vlm is not None else 0
-    assert b.shape == (2, 12 + extra, jc.vocab)
+    assert b.shape == (2, s + extra, jc.vocab)
     assert b.dtype == DTYPES[dtype][1]
     if dtype == "bfloat16" and jc.moe is not None:
         _close_routed(a, b)
         return
-    _close(a, b, dtype)
+    _close(a, b, dtype, bf16_tol=_bf16_tol(arch))
     if dtype == "bfloat16":
-        _same_greedy(a, b)
+        _same_greedy(a, b, _bf16_tol(arch))
 
 
 def _no_drops(cfg):
@@ -355,43 +402,78 @@ def _no_drops(cfg):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
+@pytest.mark.parametrize("arch", ALL)
 def test_decode_matches_jax_and_forward(arch, dtype):
-    """12 decode steps against the JAX ones, and against the port's own
-    teacher-forced forward (the reference's decode-consistency check)."""
+    """12 decode steps (80 for recurrentgemma, into max_len 128: its ring
+    of t = 64 slots wraps) against the JAX ones, and against the port's
+    own teacher-forced forward (the reference's decode-consistency check).
+    Whisper decodes over ``ENC_FRAMES`` frames with ``enc_kv`` built by
+    each package's encoder, so its forward over the same frames is the
+    decode's (cross-attention masks no slot)."""
     jc, tc = map(_no_drops, _cfgs(arch, dtype))
     jp, tp = _params(arch)
-    toks = np.random.default_rng(17).integers(0, jc.vocab, (1, 12))
-    toks = toks.astype(np.int32)
+    s = SEQ.get(arch, 12)
+    max_len = 128 if arch in SEQ else 32
+    toks, jb, tb = _batch(jc, 17, b=1, s=s, frames=ENC_FRAMES)
     jstep = jax.jit(lambda p, t, c: jdecode(p, jc, t, c))
-    jcache = jinit_cache(jc, 1, 32)
-    tcache = init_cache(tc, 1, 32, device="cpu")
-    field = "mla" if tc.mla is not None else "kv"
-    for k, v in getattr(jcache, field).items():
-        if k != "len":
-            assert getattr(tcache, field)[k].shape == v.shape
+    jcache = jinit_cache(jc, 1, max_len)
+    tcache = init_cache(tc, 1, max_len, device="cpu")
+    if jc.encdec is not None:
+        jcache = jcache._replace(enc_kv=_jax_encoder_kv(
+            jp, jc, jb["enc_frames"]))
+        tcache = tcache._replace(enc_kv=_encoder_kv(tp, tc,
+                                                    tb["enc_frames"]))
+        _close(jcache.enc_kv["k"], tcache.enc_kv["k"], dtype, "enc_kv")
     js, ts = [], []
-    for i in range(12):
+    for i in range(s):
         la, jcache = jstep(jp, jnp.asarray(toks[:, i:i + 1]), jcache)
         lb, tcache = decode_step(
             tp, tc, torch.from_numpy(toks[:, i:i + 1].astype(np.int64)),
             tcache)
         js.append(np.asarray(la[:, 0], np.float32))
         ts.append(_np(lb[:, 0]))
-    assert tcache.length == int(getattr(jcache, field)["len"]) == 12
+    assert tcache.length == s
+    if jcache.kv != ():
+        assert int(jcache.kv["len"]) == s
     js, ts = np.stack(js, 1), np.stack(ts, 1)
+    tol = _bf16_tol(arch)
     if dtype == "bfloat16" and jc.moe is not None:
         _close_routed(js, ts, "decode against JAX decode")
     else:
-        _close(js, ts, dtype, "decode against JAX decode")
-    full = _np(forward_lm(tp, tc, {"tokens": torch.from_numpy(
-        toks.astype(np.int64))}))
-    _close(full, ts, dtype, "decode against forward")
+        _close(js, ts, dtype, "decode against JAX decode", tol)
+    if jc.vlm is not None:  # decode takes no image prefix
+        tb = {"tokens": tb["tokens"]}
+    full = _np(forward_lm(tp, tc, tb))
+    _close(full, ts, dtype, "decode against forward", tol)
     if dtype == "bfloat16":
         if jc.moe is None:
-            _same_greedy(js, ts)
+            _same_greedy(js, ts, tol)
         agree = (full.argmax(-1) == ts.argmax(-1)).mean()
         assert agree >= BF16_AGREE, agree  # the reference's own bound
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_cache_matches_jax(arch):
+    """Every field of ``init_cache`` has the reference's leaves, shapes and
+    dtypes (the port adds a host "len" to ``rwkv``), all zeros."""
+    jc, tc = _cfgs(arch, "bfloat16")
+    jcache = jinit_cache(jc, 2, 24)
+    tcache = init_cache(tc, 2, 24, device="cpu")
+    assert tcache._fields == JDecodeCache._fields
+    for name, jf, tf in zip(jcache._fields, jcache, tcache):
+        assert (jf == ()) == (tf == ()), name
+        if jf == ():
+            continue
+        assert set(tf) - {"len"} == set(jf) - {"len"}, name
+        assert ("len" in tf) == ("len" in jf or name == "rwkv"), name
+        for k, v in jf.items():
+            if k == "len":
+                continue
+            assert tuple(tf[k].shape) == v.shape, (name, k)
+            assert str(tf[k].dtype).split(".")[-1] == str(v.dtype), (name, k)
+            assert not tf[k].any(), (name, k)
+        if "len" in tf:
+            assert tf["len"] == 0
 
 
 def test_decode_writes_the_cache_in_place():
@@ -511,23 +593,29 @@ def test_compute_params_casts_all_but_the_norm_scales():
     assert again["embed"] is cp["embed"]
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_family_raises(arch):
-    """Each family this slice does not port raises NotImplementedError that
-    names it, from every entry point: no fallback computation."""
+@pytest.mark.parametrize("arch,stored", [
+    ("rwkv6-1-6b", ("ln1", "ln2", "u")),
+    ("whisper-small", ("ln1", "ln2", "ln_x")),
+    ("recurrentgemma-2b", ("ln1", "ln2")),
+])
+def test_compute_params_keeps_the_float32_reads(arch, stored):
+    """The leaves the reference reads in float32 stay as stored: RWKV's
+    bonus ``u`` (cast to float32 at use), the decoder's ``ln_x`` and the
+    encoder's ``enc_norm`` (read by ``rms_norm``); every other block leaf
+    is cast, the RG-LRU's ``a_param`` and ``w_out`` included."""
     cfg = smoke_config(arch)
-    name = UNPORTED[arch]
-    params = init_params(cfg, 0, device="cpu")  # descriptors cover it
-    with pytest.raises(NotImplementedError, match=name) as e:
-        forward_lm(params, cfg, {"tokens": torch.zeros(1, 4, dtype=int)})
-    assert "ROADMAP.md queue 1" in str(e.value)
-    with pytest.raises(NotImplementedError, match=name):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        compute_params(params, cfg, "cpu")
-    dense = init_cache(smoke_config("deepseek-7b"), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        decode_step(params, cfg, torch.zeros(1, 1, dtype=int), dense)
+    _, tp = _params(arch)
+    cp = compute_params(tp, cfg, "cpu")
+    blocks = ([cp["dec_layers"], cp["enc_layers"]] if cfg.encdec else
+              list(cp["layers"].values()))
+    for block in blocks:
+        for k, v in block.items():
+            want = torch.float32 if k in stored else torch.bfloat16
+            assert v.dtype == want, (arch, k, v.dtype)
+    if cfg.encdec is not None:
+        assert cp["enc_norm"].dtype == torch.float32
+        assert torch.equal(cp["enc_norm"], tp["enc_norm"])
+        assert cp["enc_pos"].dtype == torch.bfloat16
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -544,20 +632,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", DENSE + ["llava-next-34b"] + MOE)
+@pytest.mark.parametrize("arch", ALL)
 def test_forward_and_decode_on_cuda_match_cpu(cuda, arch):
-    """float32 on the card (TF32 off, torch's default) against the CPU."""
+    """float32 on the card (TF32 off, torch's default) against the CPU;
+    recurrentgemma over 80 tokens into max_len 16 (its ring wraps), and
+    whisper with ``enc_kv`` from each side's encoder."""
     assert not torch.backends.cuda.matmul.allow_tf32
     _, tc = map(_no_drops, _cfgs(arch, "float32"))
     _, tp = _params(arch)
     gp = params_from_numpy(jax.tree_util.tree_map(
         lambda t: t.numpy(), tp), device=cuda)
-    toks, _, tb = _batch(tc, 18)
+    s = SEQ.get(arch, 12)
+    toks, _, tb = _batch(tc, 18, s=s)
     gb = {k: v.to(cuda) for k, v in tb.items()}
     _close(forward_lm(tp, tc, tb), forward_lm(gp, tc, gb), "float32")
     cc = init_cache(tc, 1, 16, device="cpu")
     gc = init_cache(tc, 1, 16, device=cuda)
-    for i in range(12):
+    if tc.encdec is not None:
+        cc = cc._replace(enc_kv=_encoder_kv(tp, tc, tb["enc_frames"][:1]))
+        gc = gc._replace(enc_kv=_encoder_kv(gp, tc, gb["enc_frames"][:1]))
+    for i in range(s if arch in SEQ else 12):
         t = torch.from_numpy(toks[:1, i:i + 1].astype(np.int64))
         la, cc = decode_step(tp, tc, t, cc)
         lb, gc = decode_step(gp, tc, t.to(cuda), gc)
