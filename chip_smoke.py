@@ -229,6 +229,37 @@ Imports only the port (``src/repro_torch``) and runs:
                 ``run_recurrent_path(torch)`` and ``run_encdec_path(torch)``
                 run the phase alone.
 
+ 19. training — (a) K6's backward (autograd's: K6 over the output's
+                gradient and rhs transposed for lhs, K6w for rhs) against
+                the plain versions' gradients computed on the CPU at phase
+                17c's shapes, with empty groups and with rows past the sum,
+                in float32 and bfloat16 (K6's tolerances); two K6w calls
+                bit-equal; K6w's and the whole backward's device and call
+                ms beside ``F.grouped_mm``'s ragged-K form (the yardstick
+                only); (b) ``deepseek-7b`` at full width and depth 4 (1.65 B
+                parameters, bf16 compute, ``remat="block"``) trains 8
+                steps of ``make_train_step(nm=1)`` through ``loop.run``
+                with an async checkpoint (about 20 GB, into a temp dir that
+                is removed) on ``PackedCorpus`` batches of 4 x 1024: step
+                ms p50, tokens/s, model FLOP/s against 989 TFLOP/s, one
+                step's device busy share under the profiler, the
+                optimizer's ms, peak memory, free disk and checkpoint
+                seconds; an nm=2 step within 5e-2 of the nm=1 step; the
+                loss falls on a repeated batch; (c) ``qwen3-moe-30b-a3b``
+                at full width and depth 2 with ragged dispatch on a
+                (2, 512) batch: every expert that took a token has a
+                nonzero gradient and every other one exactly zero; float32
+                gradients against ``dense_chunked`` where nothing drops
+                (the same routes, each leaf within 1e-4 of its largest
+                gradient); 3 trainer steps, each launching K6 and K6w (3 a
+                layer); (d) at smoke width in float32, 3 train steps of
+                ``deepseek-7b`` and of ``qwen3-moe-30b-a3b`` (ragged) on the
+                card and on the CPU, params within 1e-4; the smoke
+                ``deepseek-7b``'s fail-at-12-and-resume on the card with and
+                without ``torch.use_deterministic_algorithms`` (the script
+                sets ``CUBLAS_WORKSPACE_CONFIG`` for it), both bit-equal.
+                ``run_train_path(torch)`` runs the phase alone.
+
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
 
@@ -251,13 +282,16 @@ arrays and every key of each tile a query routes to (the function counts
 over the whole tile), and the operations are 2048 compares per query the
 launch searches. For K6, bytes are lhs, the non-empty groups' rhs and out,
 and the operations 2 M K N over the bf16 tensor-core peak (989 TFLOP/s)
-or, in float32, which K6 computes without TF32, over 67 TFLOP/s.
+or, in float32, which K6 computes without TF32, over 67 TFLOP/s. For K6w,
+bytes are the lhs and dout rows that lie in some group and the G K N
+output, and the operations 2 x rows x K x N over the same peaks.
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -347,6 +381,54 @@ K6_F32_TOL = 1e-4
 BF16_ULP = 2.0 ** -7        # one bf16 ulp is at most 2^-7 of the value
 K6_SOURCE = "src/repro_torch/kernels/csrc/ragged_dot.cu"
 K6_REPLACES = "src/repro/models/moe.py:81"
+MOE_TRAIN_ARCH = "qwen3-moe-30b-a3b"  # the MoE trainer (phase 19c)
+MOE_TRAIN_LAYERS = 2        # of 48: 1.87 B parameters, 30 GB of state
+MOE_TRAIN_BATCH = (2, 512)
+MOE_TRAIN_TOP_K = 8         # qwen3-moe's top-k: K6 and K6w's M is B S top-k
+# phase 19: K6 and its backward at the shapes phase 19c's trainer launches
+# (qwen3-moe's up- and down-projections at 2 x 512 tokens x top-8; the
+# backward's K6 runs each at the other's shape), at phase 17c's shapes, and
+# with empty groups and rows past the sum; the trainers at full width
+_M_TRAIN = MOE_TRAIN_BATCH[0] * MOE_TRAIN_BATCH[1] * MOE_TRAIN_TOP_K
+K6W_CASES = {"qwen3_train_we1": ((_M_TRAIN, 2048, 768, 128), "routed"),
+             "qwen3_train_we2": ((_M_TRAIN, 768, 2048, 128), "routed"),
+             **{name: (shape, "routed") for name, shape in K6_SHAPES.items()},
+             "empty": ((1000, 256, 192, 40), "empty"),
+             "past_sum": ((1000, 256, 192, 40), "past")}
+K6W_PAST_ROWS = 300
+K6W_HEADLINE = "qwen3_train_we1 bfloat16"  # phase 19c's bf16 up-projection
+K6W_SOURCE = "src/repro_torch/kernels/csrc/ragged_dot_wgrad.cu"
+# the backward of jax.lax.ragged_dot (moe.py:81) under jax.value_and_grad
+K6W_REPLACES = "src/repro/models/moe.py:81"
+TRAIN_ARCH = "deepseek-7b"  # the dense trainer (phase 19b)
+TRAIN_LAYERS = 4            # of 30: 1.65 B parameters, 26.4 GB of float32
+                            # params, grads, m and v
+TRAIN_BATCH = (4, 1024)     # PackedCorpus batches, as launch/train.py
+TRAIN_STEPS = 8             # through loop.run, one async checkpoint
+TRAIN_OCFG = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+TRAIN_NM_TOL = 5e-2         # test_microbatched_step_matches_fused's bound
+TRAIN_REPEAT = 3            # steps on one batch, whose loss must fall
+MOE_TRAIN_STEPS = 3
+MOE_SHORT_TOKENS = 16       # 128 picks over 128 experts: some take none
+# ragged (K6, K6w: fmaf chains) against dense_chunked (cuBLAS) gradients in
+# float32, each leaf within this share of its largest gradient: the same
+# products summed in other orders, a few float32 ulps of the terms where
+# they cancel
+MOE_GRAD_TOL = 1e-4
+TRAIN_CPU_ARCHS = ("deepseek-7b", "qwen3-moe-30b-a3b")  # smoke, 19d
+TRAIN_CPU_STEPS = 3
+TRAIN_CPU_TOL = 1e-4
+# Adam moves a weight by up to lr x g / (|g| + eps) a step; where g is at
+# the float32 noise floor of its leaf (about 1e-9 at smoke size, under
+# eps = 1e-8) the card and the CPU may take steps apart by about 0.1 lr,
+# which lr 1e-4 keeps ten times under TRAIN_CPU_TOL
+TRAIN_CPU_OCFG = dict(lr=1e-4, warmup_steps=0, total_steps=100)
+# Adam's step barely depends on the gradient's size, so the parameters alone
+# would not see a gradient of the right sign and wrong magnitude: the losses
+# are held within this relative bound, and the first step's gradients leaf
+# by leaf within MOE_GRAD_TOL of each leaf's largest gradient
+TRAIN_CPU_LOSS_TOL = 1e-5
+RESUME_STEPS, RESUME_FAIL, RESUME_EVERY = 20, 12, 5  # the reference's test
 # phase 18: (arch, card-against-CPU depth, whether its bfloat16 decode is
 # held to its bfloat16 forward) at full width and depth; the depth keeps
 # whole pattern groups (recurrentgemma's 13-block pattern). The RG-LRU's
@@ -3228,6 +3310,32 @@ def k6_bound(torch, lhs, rhs, sizes):
                      else (t_ops, "operations"))
 
 
+def _held(torch, got, want, dtype, label):
+    """Holds K6's or K6w's output ``got`` to the plain version's ``want``:
+    float32 within ``K6_F32_TOL`` relative and absolute (the sums differ in
+    order only: the kernel's against cuBLAS's), bfloat16 within one bf16
+    ulp of the plain value plus that bound (each rounds its own float32
+    sum once). Returns (max abs error, for bfloat16 [count of outputs
+    beyond one ulp, largest excess] else None)."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    tol = K6_F32_TOL * (1 + w.abs())
+    over_ulp = None
+    if dtype == torch.bfloat16:
+        past = diff - BF16_ULP * w.abs()
+        if past.numel():
+            over_ulp = [int((past > 0).sum()), float(past.max())]
+        diff_past = past
+    else:
+        diff_past = diff
+    bad = diff_past > tol
+    e = float(diff.max()) if diff.numel() else 0.0
+    require(not bool(bad.any()),
+            f"{label}: {int(bad.sum())} outputs off the plain version (max "
+            f"abs error {e})")
+    return e, over_ulp
+
+
 def compare_k6(torch, device="cuda"):
     """Phase 17c: K6 against ``ragged_dot_plain`` on the card at the main
     path's shapes (``K6_SHAPES``), a case with empty groups and rows past
@@ -3269,22 +3377,7 @@ def compare_k6(torch, device="cuda"):
             total = int(sizes.sum())
             require(not bool(got[total:].any()),
                     f"K6 ({label}): rows past the sum are not zero")
-            w = want.float()
-            diff = (got.float() - w).abs()
-            # the float32 sums differ in order only (the tensor cores'
-            # against cuBLAS's); bf16 adds one rounding of each
-            sums_tol = K6_F32_TOL * (1 + w.abs())
-            over_ulp = None
-            if dtype == torch.float32:
-                bad = diff > sums_tol
-            else:
-                past = diff - BF16_ULP * w.abs()
-                over_ulp = [int((past > 0).sum()), float(past.max())]
-                bad = past > sums_tol
-            e = float(diff.max())
-            require(not bool(bad.any()),
-                    f"K6 ({label}): {int(bad.sum())} outputs off the plain "
-                    f"version (max abs error {e})")
+            e, over_ulp = _held(torch, got, want, dtype, f"K6 ({label})")
             err = max(err, e)
             if name == "odd":
                 print(f"K6 {label}: path {took[0]}, max abs error {e}",
@@ -3469,7 +3562,680 @@ def run_encdec_path(torch, device="cuda"):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# training (phase 19)
+# ---------------------------------------------------------------------------
+
+
+def k6w_inputs(torch, m, k, n, g, dtype, seed, kind, device="cuda"):
+    """K6's backward inputs of one shape: ``k6_inputs``' lhs, rhs and group
+    sizes, and the output's gradient dout [M, N] (normals). ``kind``:
+    ``"routed"`` every row in some group, ``"empty"`` every third group
+    empty and 100 rows past the sum, ``"past"`` every group routed and
+    ``K6W_PAST_ROWS`` rows past the sum."""
+    lhs, rhs, sizes = k6_inputs(torch, m, k, n, g, dtype, seed,
+                                empty=kind == "empty", device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if kind == "past":
+        e = torch.randint(0, g, (m - K6W_PAST_ROWS,), generator=gen,
+                          device=device)
+        sizes = torch.bincount(e, minlength=g).to(torch.int32)
+    dout = torch.randn(m, n, generator=gen, device=device).to(dtype)
+    return lhs, rhs, sizes, dout
+
+
+def k6w_bound(torch, lhs, dout, sizes, g):
+    """The larger of the bytes K6w must move (the lhs and dout rows that
+    lie in some group, read once, and the G K N output, written once, over
+    3.35 TB/s) and 2 x rows x K x N operations over the peak for the input
+    type (989 TFLOP/s bf16 tensor cores; 67 TFLOP/s float32)."""
+    m, k = lhs.shape
+    n = dout.shape[1]
+    rows = min(int(sizes.clamp(min=0).sum()), m)
+    n_bytes = (rows * (k + n) + g * k * n) * lhs.element_size()
+    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * k * n / rate * 1e3
+    return n_bytes, ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+
+
+def _grouped_mm_wgrad(torch, lhs, dout, sizes):
+    """``F.grouped_mm``'s 2-D x 2-D ragged-K form on K6w's inputs
+    (lhs^T [K, M] and dout [M, N] grouped along M; the yardstick only), or
+    the reason it does not run here."""
+    import torch.nn.functional as F
+
+    fn = getattr(F, "grouped_mm", None)
+    if fn is None:
+        return None, "torch.nn.functional.grouped_mm is missing"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    err = None
+    for a, b in ((lhs.T, dout), (lhs.T.contiguous(), dout),
+                 (lhs.T.contiguous(), dout.T.contiguous().T)):
+        try:
+            fn(a, b, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: fn(a, b, offs=offs)), None
+        except Exception as e:  # noqa: BLE001 — the yardstick only
+            err = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return None, err
+
+
+def _k6_backward(torch, lhs, rhs, sizes, dout):
+    """K6's whole backward as autograd runs it (the transposed copy of rhs
+    and K6 for lhs, K6w for rhs), repeatable: returns (the forward's
+    output, fn() -> (dlhs, drhs))."""
+    from repro_torch.kernels.ragged_dot import ragged_dot
+
+    a = lhs.detach().requires_grad_(True)
+    b = rhs.detach().requires_grad_(True)
+    out = ragged_dot(a, b, sizes)
+    return out.detach(), lambda: torch.autograd.grad(out, (a, b), dout,
+                                                     retain_graph=True)
+
+
+
+
+def compare_k6w(torch, device="cuda"):
+    """Phase 19a: K6's forward and backward on the card against the plain
+    versions computed on the CPU, at the shapes phase 19c's trainer
+    launches, at phase 17c's shapes (``K6_SHAPES``) and in a case with
+    empty groups and one with rows past the sum (``K6W_CASES``), in float32
+    and bfloat16, each held by ``_held``. Autograd's backward must launch K6 once (lhs) and K6w
+    once (rhs); a second K6w call must give the same bits; rows past the
+    sum get a zero lhs gradient and empty groups a zero rhs gradient. Then
+    each case's K6w device ms and call ms, the whole backward's (the
+    transposed copy included), the plain version's device ms on the card,
+    ``F.grouped_mm``'s ragged-K form where it runs (the yardstick only)
+    and the bound. Returns (max abs error, the headline timing with the
+    other cases as variants)."""
+    from repro_torch.kernels.ragged_dot import ragged_dot, ragged_dot_wgrad
+    from repro_torch.kernels.ref import (
+        ragged_dot_plain,
+        ragged_dot_wgrad_plain,
+    )
+
+    err, timings = 0.0, {}
+    for name, ((m, k, n, g), kind) in K6W_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            label = f"K6w {name} {str(dtype)[6:]}"
+            lhs, rhs, sizes, dout = k6w_inputs(torch, m, k, n, g, dtype, 19,
+                                               kind, device)
+            out, back = _k6_backward(torch, lhs, rhs, sizes, dout)
+            k6, k6w = ragged_dot.launches, ragged_dot_wgrad.launches
+            dl, dr = back()
+            again = ragged_dot_wgrad(lhs, dout, sizes, g)
+            torch.cuda.synchronize()
+            require(ragged_dot.launches - k6 == 1
+                    and ragged_dot_wgrad.launches - k6w == 2,
+                    f"{label}: backward launched K6 "
+                    f"{ragged_dot.launches - k6} and K6w "
+                    f"{ragged_dot_wgrad.launches - k6w - 1} times")
+            require(torch.equal(dr, again), f"{label}: two K6w calls differ")
+            rows = min(int(sizes.clamp(min=0).sum()), m)
+            require(not bool(dl[rows:].any()),
+                    f"{label}: rows past the sum have a gradient")
+            require(not bool(dr[sizes == 0].any()),
+                    f"{label}: an empty group has a gradient")
+            # the forward (K6), the lhs gradient (K6 over dout and rhs
+            # transposed) and the rhs gradient (K6w), each against the
+            # plain version on the CPU
+            host = [t.cpu() for t in (lhs, rhs, sizes, dout)]
+            e_f, _ = _held(torch, out, ragged_dot_plain(
+                host[0], host[1], host[2]).to(device), dtype,
+                f"{label} forward")
+            e_l, ulp_l = _held(torch, dl, ragged_dot_plain(
+                host[3], host[1].transpose(1, 2), host[2]).to(device), dtype,
+                f"{label} dlhs")
+            e_r, ulp_r = _held(torch, dr, ragged_dot_wgrad_plain(
+                host[0], host[3], host[2], g).to(device), dtype,
+                f"{label} drhs")
+            del host, out, dl, dr, again
+            err = max(err, e_f, e_l, e_r)
+            lib, why = _grouped_mm_wgrad(torch, lhs, dout, sizes)
+            n_bytes, bound = k6w_bound(torch, lhs, dout, sizes, g)
+            wgrad = lambda: ragged_dot_wgrad(lhs, dout, sizes, g)  # noqa: E731
+            timings[label[4:]] = dict(
+                ms=device_ms(torch, wgrad, 10),
+                call_ms=call_ms(torch, wgrad, 10),
+                backward_ms=device_ms(torch, back, 5),
+                backward_call_ms=call_ms(torch, back, 5),
+                plain_ms=device_ms(torch, lambda: ragged_dot_wgrad_plain(
+                    lhs, dout, sizes, g), 2),
+                library_ms=device_ms(torch, lib, 10) if lib else None,
+                bytes=n_bytes, bound=bound, max_abs_err=max(e_l, e_r),
+                max_abs_err_forward=e_f, max_abs_err_dlhs=e_l,
+                max_abs_err_drhs=e_r,
+                # [count, largest excess] beyond one bf16 ulp
+                beyond_one_bf16_ulp={"dlhs": ulp_l, "drhs": ulp_r},
+                shape=dict(m=m, k=k, n=n, g=g, rows=rows,
+                           nonempty=int((sizes > 0).sum())),
+            )
+            if why:
+                timings[label[4:]]["library_error"] = why
+            print(f"{label}: {json.dumps(timings[label[4:]])}", flush=True)
+            del lhs, rhs, sizes, dout, back
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"kernels[ragged_dot_wgrad]: K6's backward max abs error "
+          f"{err:.3g} over {2 * len(K6W_CASES)} cases", flush=True)
+    head = dict(timings[K6W_HEADLINE])
+    head["variants"] = {k: v for k, v in timings.items() if k != K6W_HEADLINE}
+    return err, head
+
+
+def _profile_step(torch, fn):
+    """(wall ms, device busy ms, device ops) of one call of ``fn`` under the
+    profiler (its device events summed: kernels and copies on the step's
+    stream); (wall, None, None) where the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print("train: the profiler saw no device event", flush=True)
+        return wall, None, None
+    return wall, sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev)
+
+
+def _leaf_diff(torch, a, b) -> float:
+    """Max abs difference over the leaves of two parameter trees."""
+    from repro_torch.models.init import flatten_tree
+
+    return max(float((x.float() - y.float().to(x.device)).abs().max())
+               for (_, x), (_, y) in zip(flatten_tree(a), flatten_tree(b)))
+
+
+def run_dense_trainer(torch, device="cuda"):
+    """Phase 19b: ``TRAIN_ARCH`` at full width and ``TRAIN_LAYERS`` layers
+    (bf16 compute, ``remat="block"``) trains ``TRAIN_STEPS`` steps of
+    ``make_train_step(nm=1)`` through ``loop.run`` with an async
+    checkpoint at the end (into a temp dir, removed after), on
+    ``PackedCorpus`` batches of ``TRAIN_BATCH`` as
+    ``src/repro/launch/train.py`` feeds them. Then: an nm=2 step against
+    the nm=1 step from the same state (loss and params within the
+    reference's ``TRAIN_NM_TOL``), one step under the profiler (the
+    device's busy share), the optimizer's ms alone, and
+    ``TRAIN_REPEAT`` steps on one batch, whose loss must fall. Reports
+    step ms p50 (the first step apart), tokens/s, model FLOP/s against the
+    bf16 peak, free disk and checkpoint seconds and bytes, peak memory
+    (in all and by part: the loop, the nm check, the profiled step, the
+    optimizer alone, the repeated batch).
+    Returns the report and the launches (the corpus's index lookups)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PackedCorpus, PipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.init import flatten_tree, unflatten_tree
+    from repro_torch.train import (
+        AdamWConfig,
+        LoopConfig,
+        adamw_update,
+        init_opt_state,
+        make_train_step,
+        run,
+    )
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    require(cfg.remat == "block" and cfg.compute_dtype == "bfloat16",
+            f"train: {cfg.name} trains with remat {cfg.remat} in "
+            f"{cfg.compute_dtype}")
+    b, s = TRAIN_BATCH
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": cfg.n_params(), "batch": [b, s],
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    rep["init_s"] = time.perf_counter() - t0
+    corpus = PackedCorpus(PipelineConfig(vocab=cfg.vocab, seq_len=s,
+                                         global_batch=b, n_docs=2048),
+                          device=device)
+
+    def next_batch(step):
+        toks = corpus.batch(step)["tokens"].astype(np.int64)
+        return {"tokens": torch.as_tensor(toks, device=device)}
+
+    peaks = {}
+
+    def part_peak(part):
+        """Record the peak since the last mark as ``part``'s."""
+        torch.cuda.synchronize()
+        peaks[part] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+
+    ocfg = AdamWConfig(**TRAIN_OCFG)
+    step_fn = make_train_step(cfg, ocfg, nm=1)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        rep["disk_free_bytes"] = shutil.disk_usage(ckpt_dir).free
+        t0 = time.perf_counter()
+        # the loop holds the only reference to the initial state, so each
+        # step frees the state before it (as launch/train.py donates it)
+        state = [params, opt]
+        del params, opt
+        res = run(step_fn, state.pop(0), state.pop(0), next_batch, LoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+            ckpt_dir=ckpt_dir, async_ckpt=True, log_every=TRAIN_STEPS))
+        loop_s = time.perf_counter() - t0
+        rep["ckpt_bytes"] = sum(f.stat().st_size
+                                for f in Path(ckpt_dir).rglob("*.npy"))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps_ms = [t * 1e3 for t in res["step_s"]]
+    rep["losses"] = res["losses"]
+    rep["step_ms"] = {"first": steps_ms[0],
+                      "p50": float(np.median(steps_ms[1:])),
+                      "max": float(np.max(steps_ms[1:]))}
+    # the snapshot to the host and the final join of the writer
+    rep["ckpt_s"] = loop_s - sum(res["step_s"])
+    rep["tokens_per_s"] = b * s / rep["step_ms"]["p50"] * 1e3
+    require(all(math.isfinite(x) for x in res["losses"]),
+            f"train: non-finite loss {res['losses']}")
+    params, opt = res["params"], res["opt_state"]
+    del res
+    part_peak("loop")
+
+    # nm=2 against nm=1 from the same state, on one batch
+    b1 = next_batch(TRAIN_STEPS)
+    p1, _, l1, _ = step_fn(params, opt, b1)
+    p1 = _map_tree(lambda v: v.cpu(), p1)  # off the card for the nm=2 step
+    p2, _, l2, _ = make_train_step(cfg, ocfg, nm=2)(params, opt, b1)
+    rep["nm2_vs_nm1"] = {"loss_diff": abs(float(l1) - float(l2)),
+                         "param_max_abs_diff": _leaf_diff(torch, p2, p1),
+                         "tol": TRAIN_NM_TOL}
+    del p1, p2
+    part_peak("nm_check")
+    require(rep["nm2_vs_nm1"]["loss_diff"] < TRAIN_NM_TOL
+            and rep["nm2_vs_nm1"]["param_max_abs_diff"] < TRAIN_NM_TOL,
+            f"train: the nm=2 step differs from nm=1: {rep['nm2_vs_nm1']}")
+
+    # one step under the profiler, and the optimizer alone
+    wall, busy, n_ops = _profile_step(torch, lambda: step_fn(params, opt, b1))
+    rep["profiled_step"] = {"wall_ms": wall, "device_busy_ms": busy,
+                            "device_ops": n_ops,
+                            "busy_share": busy / wall if busy else None}
+    part_peak("profiled_step")
+    grads = unflatten_tree([(p, torch.randn_like(v) * 1e-3)
+                            for p, v in flatten_tree(params)])
+    rep["optimizer_ms"] = call_ms(
+        torch, lambda: adamw_update(params, grads, opt, ocfg), 2)
+    del grads
+    part_peak("optimizer")
+    n_emb = cfg.vocab * cfg.d_model
+    flops = (6 * (cfg.n_params() - n_emb) * b * s
+             + 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim)
+    rep["model_flops_per_step"] = flops
+    rep["model_tflops_per_s"] = flops / rep["step_ms"]["p50"] / 1e9
+    rep["mfu_bf16"] = rep["model_tflops_per_s"] * 1e12 / BF16_OPS_PER_S
+
+    # the loss falls on a repeated batch
+    losses = []
+    for _ in range(TRAIN_REPEAT):
+        params, opt, loss, _ = step_fn(params, opt, b1)
+        losses.append(float(loss))
+    rep["repeated_batch_losses"] = losses
+    require(losses[-1] < losses[0],
+            f"train: the loss did not fall on a repeated batch: {losses}")
+    launches = ops.launch_counts()
+    part_peak("repeated_batch")
+    rep["peak_bytes_by_part"] = peaks
+    rep["peak_bytes"] = max(peaks.values())
+    del params, opt, corpus, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["left_bytes"] = torch.cuda.memory_allocated() - base
+    require(rep["left_bytes"] < LM_LEFT_BYTES,
+            f"train: {rep['left_bytes']} bytes still allocated")
+    rep["card"] = card_line()
+    print("train dense " + json.dumps(rep), flush=True)
+    return rep, launches
+
+
+def _expert_grads_check(cfg, grads, routes, shape):
+    """Every expert that took a token in a layer (from the forward's
+    recorded routes, the first ``n_layers`` router calls, over a batch of
+    ``shape``) has a nonzero gradient in each of we1, we2, we3, and every
+    other expert exactly zero. A sequence's last token predicts nothing
+    (the loss drops its logits) and, the attention being causal, reaches
+    no other position, so its picks count as none. Returns the experts
+    that took a token, per layer."""
+    e, layers = cfg.moe.n_experts, cfg.n_layers
+    b, s = shape
+    took = np.stack([np.bincount(r.reshape(b, s, -1)[:, :-1].reshape(-1)
+                                 .cpu().numpy(), minlength=e)
+                     for r in routes[:layers]])
+    for w in ("we1", "we2", "we3"):
+        g = grads[f"layers/blk0_attn/{w}"]
+        per = g.float().abs().amax(dim=(2, 3)).cpu().numpy()  # [L, E]
+        require(bool((per[took == 0] == 0).all()),
+                f"train moe: an expert without tokens has a {w} gradient")
+        require(bool((per[took > 0] > 0).all()),
+                f"train moe: an expert with tokens has no {w} gradient")
+    return (took > 0).sum(1).tolist()
+
+
+def _worst_of_leaf_max(paths, got, want):
+    """The largest |got - want| over a leaf as a share of the leaf's
+    largest |want| (of its largest |got| where want is all zero), and the
+    leaf where it is."""
+    worst, where = 0.0, None
+    for p, a, b in zip(paths, got, want):
+        scale = float(b.abs().max())
+        rel = (float((a - b).abs().max()) / scale if scale
+               else float(a.abs().max()))
+        if rel > worst:
+            worst, where = rel, "/".join(p)
+    return worst, where
+
+
+def run_moe_trainer(torch, device="cuda"):
+    """Phase 19c: ``MOE_TRAIN_ARCH`` at full width and
+    ``MOE_TRAIN_LAYERS`` layers with ragged dispatch (K6 forward and data
+    gradient, K6w weight gradient), on a ``MOE_TRAIN_BATCH`` batch. A
+    gradient at bf16 compute on that batch (where every expert takes
+    tokens) and on its first ``MOE_SHORT_TOKENS`` tokens (where some take
+    none): every expert that took a token has a nonzero gradient and
+    every other expert exactly zero; one at float32
+    compute against ``dense_chunked`` at a capacity factor where nothing
+    drops (``_no_drops``): the same routes, and every leaf within
+    ``MOE_GRAD_TOL`` of its largest gradient; then ``MOE_TRAIN_STEPS``
+    trainer steps (bf16), each of which must launch K6 and K6w (3 K6w a
+    layer). Returns the report and the launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.train import (
+        AdamWConfig,
+        grads_of,
+        init_opt_state,
+        make_train_step,
+    )
+
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    require(cfg.moe.top_k == MOE_TRAIN_TOP_K,
+            f"train moe: {cfg.name}'s top-k is {cfg.moe.top_k}, phase 19a "
+            f"checks K6 and K6w at top-{MOE_TRAIN_TOP_K}")
+    cfg_r = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="ragged"))
+    layers = cfg.n_layers
+    rep = {"arch": cfg.name, "n_layers": layers, "n_params": cfg.n_params(),
+           "batch": list(MOE_TRAIN_BATCH), "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    params = init_params(cfg, 0, device=device)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, MOE_TRAIN_BATCH)
+    batch = {"tokens": torch.as_tensor(toks, device=device)}
+
+    def named(paths, grads):
+        return {"/".join(p): g for p, g in zip(paths, grads)}
+
+    # the trainer's batch, where every expert takes tokens, and a short
+    # one, where some take none
+    short = {"tokens": batch["tokens"][:1, :MOE_SHORT_TOKENS]}
+    rep["experts_with_tokens"] = {}
+    for name, b in (("batch", batch), ("short", short)):
+        with _Routes() as routes:
+            _, paths, grads = grads_of(params, cfg_r, b)
+        rep["experts_with_tokens"][name] = _expert_grads_check(
+            cfg, named(paths, grads), routes.seen, tuple(b["tokens"].shape))
+        del grads
+    require(min(rep["experts_with_tokens"]["short"]) < cfg.moe.n_experts,
+            "train moe: every expert took a token of the short batch")
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg_r32 = dataclasses.replace(c32, moe=dataclasses.replace(
+        c32.moe, dispatch="ragged"))
+    cfg_d32 = _no_drops(dataclasses.replace(c32, moe=dataclasses.replace(
+        c32.moe, dispatch="dense_chunked")))
+    with _Routes() as rr:
+        l_r, _, g_r = grads_of(params, cfg_r32, batch)
+    with _Routes() as rd:
+        l_d, _, g_d = grads_of(params, cfg_d32, batch)
+    t = MOE_TRAIN_BATCH[0] * MOE_TRAIN_BATCH[1]
+    same_routes = all(torch.equal(a, b) for a, b in zip(rr.seen, rd.seen))
+    worst, where = _worst_of_leaf_max(paths, g_r, g_d)
+    rep["ragged_vs_dense_f32"] = {
+        "capacity_factor": cfg_d32.moe.capacity_factor,
+        "dense_drops": _forward_drops(rd.seen[:layers], cfg_d32, t),
+        "same_routes": same_routes, "loss_diff": abs(float(l_r - l_d)),
+        "max_grad_diff_of_leaf_max": worst, "at": where,
+        "tol": MOE_GRAD_TOL}
+    del g_r, g_d
+    require(rep["ragged_vs_dense_f32"]["dense_drops"] == 0 and same_routes
+            and worst <= MOE_GRAD_TOL,
+            f"train moe: ragged and dense float32 gradients differ: "
+            f"{rep['ragged_vs_dense_f32']}")
+
+    opt = init_opt_state(params)
+    step_fn = make_train_step(cfg_r, AdamWConfig(**TRAIN_OCFG), nm=1)
+    rep["steps"] = []
+    for _ in range(MOE_TRAIN_STEPS):
+        before, paths_before = ops.launch_counts(), _k6_paths()
+        t0 = time.perf_counter()
+        params, opt, loss, _ = step_fn(params, opt, batch)
+        loss = float(loss)
+        ms = (time.perf_counter() - t0) * 1e3
+        now = ops.launch_counts()
+        k6 = now["ragged_dot"] - before["ragged_dot"]
+        k6w = now["ragged_dot_wgrad"] - before["ragged_dot_wgrad"]
+        rep["steps"].append({"ms": ms, "loss": loss, "k6": k6, "k6w": k6w,
+                             "k6_paths": _k6_paths(paths_before)})
+        require(math.isfinite(loss) and k6 > 0 and k6w == 3 * layers,
+                f"train moe: a step launched K6 {k6} and K6w {k6w} times "
+                f"(loss {loss})")
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["left_bytes"] = torch.cuda.memory_allocated() - base
+    require(rep["left_bytes"] < LM_LEFT_BYTES,
+            f"train moe: {rep['left_bytes']} bytes still allocated")
+    rep["card"] = card_line()
+    print("train moe " + json.dumps(rep), flush=True)
+    return rep, launches
+
+
+def _smoke_batch(torch, cfg, step, device):
+    """Phase 19d's batch of ``step``: numpy tokens keyed by the step."""
+    toks = np.random.default_rng(2000 + step).integers(0, cfg.vocab, (4, 32))
+    return {"tokens": torch.as_tensor(toks, device=device)}
+
+
+def _smoke_steps(torch, cfg, params, device, n_steps):
+    """The first batch's gradients, then ``n_steps`` train steps of
+    ``cfg`` (``TRAIN_CPU_OCFG``), from ``params`` copied to ``device``.
+    Returns (paths, the gradients on the host, the final params, the
+    losses)."""
+    from repro_torch.train import (
+        AdamWConfig,
+        grads_of,
+        init_opt_state,
+        make_train_step,
+    )
+
+    p = _map_tree(lambda v: v.to(device), params)
+    _, paths, grads = grads_of(p, cfg, _smoke_batch(torch, cfg, 0, device))
+    grads = [g.cpu() for g in grads]
+    o = init_opt_state(p)
+    step_fn = make_train_step(cfg, AdamWConfig(**TRAIN_CPU_OCFG), nm=1)
+    losses = []
+    for step in range(n_steps):
+        p, o, loss, _ = step_fn(p, o, _smoke_batch(torch, cfg, step, device))
+        losses.append(float(loss))
+    return paths, grads, p, losses
+
+
+def _resume_equal(torch, device, deterministic: bool) -> bool:
+    """The reference's ``test_resume_after_failure_matches_uninterrupted``
+    on ``device``: the smoke ``deepseek-7b`` for ``RESUME_STEPS`` steps
+    uninterrupted, and failing at ``RESUME_FAIL`` then resumed from its
+    checkpoint; whether the final params and optimizer state are equal bit
+    for bit. ``deterministic``: under ``torch.use_deterministic_algorithms``
+    (which the script's ``CUBLAS_WORKSPACE_CONFIG`` allows)."""
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train import (
+        AdamWConfig,
+        LoopConfig,
+        SimulatedFailure,
+        init_opt_state,
+        make_train_step,
+        run,
+    )
+    from repro_torch.models.init import flatten_tree
+
+    cfg = smoke_config("deepseek-7b")
+    step_fn = make_train_step(cfg, AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=100), nm=1)
+
+    def fresh():
+        p = init_params(cfg, 0, device=device)
+        return p, init_opt_state(p)
+
+    def next_batch(step):
+        toks = np.random.default_rng(1000 + step).integers(0, cfg.vocab,
+                                                           (4, 32))
+        return {"tokens": torch.as_tensor(toks, device=device)}
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+            lc = dict(total_steps=RESUME_STEPS, ckpt_every=RESUME_EVERY,
+                      log_every=1000)
+            a = run(step_fn, *fresh(), next_batch,
+                    LoopConfig(ckpt_dir=f"{d}/a", **lc))
+            try:
+                run(step_fn, *fresh(), next_batch, LoopConfig(
+                    ckpt_dir=f"{d}/b", fail_at_step=RESUME_FAIL, **lc))
+                require(False, "train resume: the injected failure did not "
+                               "happen")
+            except SimulatedFailure:
+                pass
+            b = run(step_fn, *fresh(), next_batch,
+                    LoopConfig(ckpt_dir=f"{d}/b", **lc))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    pa = flatten_tree((a["params"], a["opt_state"]))
+    pb = flatten_tree((b["params"], b["opt_state"]))
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(pa, pb))
+
+
+def train_card_vs_cpu(torch, device="cuda"):
+    """Phase 19d: at smoke width in float32, ``TRAIN_CPU_STEPS`` train
+    steps of each of ``TRAIN_CPU_ARCHS`` (the MoE one with ragged dispatch:
+    K6 and K6w) on the card and on the CPU from the same weights: every
+    loss within ``TRAIN_CPU_LOSS_TOL`` relative, the first batch's
+    gradients leaf by leaf within ``MOE_GRAD_TOL`` of each leaf's largest,
+    every parameter within ``TRAIN_CPU_TOL``. Then the smoke ``deepseek-7b``'s
+    fail-and-resume on the card, with and without
+    ``torch.use_deterministic_algorithms``: both must be bit-equal.
+    Returns the report and the launches."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    ops.reset_launch_counts()
+    rep = {"tol": TRAIN_CPU_TOL, "loss_tol": TRAIN_CPU_LOSS_TOL,
+           "grad_tol": MOE_GRAD_TOL, "steps": TRAIN_CPU_STEPS,
+           "ocfg": TRAIN_CPU_OCFG}
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, dispatch="ragged"))
+        params = init_params(cfg, 0, device="cpu")
+        before = ops.launch_counts()
+        paths, card_g, card, card_losses = _smoke_steps(
+            torch, cfg, params, device, TRAIN_CPU_STEPS)
+        now = ops.launch_counts()
+        _, host_g, host, host_losses = _smoke_steps(
+            torch, cfg, params, "cpu", TRAIN_CPU_STEPS)
+        diff = _leaf_diff(torch, card, host)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(card_losses, host_losses))
+        worst, where = _worst_of_leaf_max(paths, card_g, host_g)
+        rep[arch] = {"param_max_abs_diff": diff,
+                     "losses": {"card": card_losses, "cpu": host_losses},
+                     "loss_max_rel_diff": loss_rel,
+                     "grad_max_diff_of_leaf_max": worst, "grad_at": where,
+                     "k6": now["ragged_dot"] - before["ragged_dot"],
+                     "k6w": now["ragged_dot_wgrad"]
+                     - before["ragged_dot_wgrad"]}
+        require(diff <= TRAIN_CPU_TOL,
+                f"train: card and CPU params differ by {diff} ({arch})")
+        require(loss_rel <= TRAIN_CPU_LOSS_TOL,
+                f"train: card and CPU losses differ by {loss_rel} relative "
+                f"({arch})")
+        require(worst <= MOE_GRAD_TOL,
+                f"train: card and CPU gradients differ by {worst} of the "
+                f"leaf's largest at {where} ({arch})")
+        if cfg.moe is not None:
+            require(rep[arch]["k6"] > 0 and rep[arch]["k6w"] > 0,
+                    f"train: {arch} did not launch K6 and K6w on the card")
+    rep["resume_bit_equal"] = {
+        "default": _resume_equal(torch, device, False),
+        "deterministic_algorithms": _resume_equal(torch, device, True)}
+    require(all(rep["resume_bit_equal"].values()),
+            f"train: the resumed run is not bit-equal on the card "
+            f"({rep['resume_bit_equal']})")
+    launches = ops.launch_counts()
+    print("train card_vs_cpu " + json.dumps(rep), flush=True)
+    return rep, launches
+
+
+def run_train_path(torch, device="cuda"):
+    """Phase 19: 19a holds K6's backward to its plain versions and times
+    K6w (``compare_k6w``; its launches are not counted); 19b trains the
+    dense model at full width (``run_dense_trainer``); 19c the MoE model
+    through K6 and K6w (``run_moe_trainer``); 19d the card against the CPU
+    and the bit-equal resume (``train_card_vs_cpu``). Returns (reports,
+    launches by path, K6w's error and timing)."""
+    err, timing = compare_k6w(torch, device)
+    dense_rep, dense_launches = run_dense_trainer(torch, device)
+    moe_rep, moe_launches = run_moe_trainer(torch, device)
+    cpu_rep, cpu_launches = train_card_vs_cpu(torch, device)
+    require(moe_launches["ragged_dot_wgrad"] > 0,
+            "train: K6w did not launch on the MoE trainer's path")
+    return ({"dense": dense_rep, "moe": moe_rep, "card_vs_cpu": cpu_rep},
+            {"train_dense": dense_launches, "train_moe": moe_launches,
+             "train_card_vs_cpu": cpu_launches}, err, timing)
+
+
 def main() -> int:
+    # phase 19d's deterministic resume needs cuBLAS's fixed workspace
+    # (the H100's default size), set before the first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3594,7 +4360,9 @@ def main() -> int:
     _, moe_launches, k6_err, k6_timing = run_moe_path(torch)
     _, rec_launches = run_recurrent_path(torch)
     run_encdec_path(torch)
+    _, train_launches, k6w_err, k6w_timing = run_train_path(torch)
     timing["ragged_dot"] = k6_timing
+    timing["ragged_dot_wgrad"] = k6w_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
           f"{timing['gmm_estep']['k']}, the forecaster's whole E-step "
           f"{timing['gmm_estep']['forecaster_estep_ms']:.4f} ms", flush=True)
@@ -3605,6 +4373,7 @@ def main() -> int:
         "tile_search": (K4_SOURCE, K4_REPLACES, max(a[0] for a in api)),
         "spline_lookup": (K5_SOURCE, K5_REPLACES, max(a[1] for a in api)),
         "ragged_dot": (K6_SOURCE, K6_REPLACES, k6_err),
+        "ragged_dot_wgrad": (K6W_SOURCE, K6W_REPLACES, k6w_err),
     }
     paths = {"uplif": launches, "router": r_launches,
              "uplif_range": range_launches, "router_range": rr_launches,
@@ -3613,7 +4382,8 @@ def main() -> int:
              "forecaster_k16": fc_launches, "gateway": g_launches,
              "async_maintenance": a_launches, "agent": ag_launches,
              "baselines": b_launches, "pipeline": p_launches,
-             "lm_serve": lm_launches, **moe_launches, **rec_launches}
+             "lm_serve": lm_launches, **moe_launches, **rec_launches,
+             **train_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

@@ -31,7 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
-           "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu")
+           "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu",
+           "ragged_dot_wgrad.cu")
 HEADERS = ("key_delta.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -62,6 +63,8 @@ SIGNATURES = {
                           + [_I, _I, _P],
     # lhs, rhs, group_sizes, out, m, k, n, g, bf16, tma, stream
     "ragged_dot_launch": [_P] * 4 + [_I] * 6 + [_P],
+    # lhs, dout, group_sizes, drhs, m, k, n, g, bf16, stream
+    "ragged_dot_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

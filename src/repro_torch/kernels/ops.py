@@ -225,6 +225,7 @@ def launch_counts() -> dict:
         "tile_search": _tiles.tile_search.launches,
         "spline_lookup": _locate.spline_lookup.launches,
         "ragged_dot": _ragged.ragged_dot.launches,
+        "ragged_dot_wgrad": _ragged.ragged_dot_wgrad.launches,
     }
 
 
@@ -235,5 +236,6 @@ def reset_launch_counts() -> None:
     _tiles.tile_search.launches = 0
     _locate.spline_lookup.launches = 0
     _ragged.ragged_dot.launches = 0
+    _ragged.ragged_dot_wgrad.launches = 0
     for p in _ragged.ragged_dot.launches_by_path:
         _ragged.ragged_dot.launches_by_path[p] = 0

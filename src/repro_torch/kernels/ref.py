@@ -10,7 +10,9 @@ int64 keys directly, on the CPU and in the CUDA kernels alike.
 version, which the CPU path and the tests run. ``fma_f32`` is the
 single-rounding multiply-add of K1's and K5's plain versions.
 ``ragged_dot_plain`` is K6's plain version, the grouped matrix product of
-``jax.lax.ragged_dot`` (the reference has no Pallas kernel for it).
+``jax.lax.ragged_dot`` (the reference has no Pallas kernel for it), and
+``ragged_dot_wgrad_plain`` K6w's, the gradient of that product with
+respect to its grouped right operand.
 """
 from __future__ import annotations
 
@@ -60,6 +62,17 @@ def gmm_estep_plain(
     return e / e.sum(dim=1, keepdim=True)
 
 
+def _group_bounds(group_sizes: torch.Tensor, m: int):
+    """(group, start, end) of each group's rows, as ``ragged_dot_plain``
+    cuts them: consecutive in group order, a negative size counted as 0,
+    every bound clamped to ``m``. Reads the sizes on the host."""
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), m)
+        yield g, start, end
+        start = end
+
+
 def ragged_dot_plain(
     lhs: torch.Tensor,          # [M, K], float32 or bfloat16
     rhs: torch.Tensor,          # [G, K, N], lhs's dtype
@@ -73,11 +86,31 @@ def ragged_dot_plain(
     tensor on every call; the CPU path and the tests run it."""
     m = lhs.shape[0]
     out = torch.zeros((m, rhs.shape[2]), dtype=lhs.dtype, device=lhs.device)
-    start = 0
-    for g, size in enumerate(group_sizes.tolist()):
-        end = min(start + max(int(size), 0), m)
+    for g, start, end in _group_bounds(group_sizes, m):
         if end > start:
             out[start:end] = torch.matmul(lhs[start:end].float(),
                                           rhs[g].float()).to(lhs.dtype)
-        start = end
+    return out
+
+
+def ragged_dot_wgrad_plain(
+    lhs: torch.Tensor,          # [M, K], float32 or bfloat16
+    dout: torch.Tensor,         # [M, N], lhs's dtype
+    group_sizes: torch.Tensor,  # int32[G]
+    n_groups: int,
+) -> torch.Tensor:
+    """The gradient of ``ragged_dot_plain(lhs, rhs, group_sizes)`` with
+    respect to ``rhs`` [G, K, N], given the output's gradient ``dout``:
+    ``drhs[g] = lhs[rows of g].T @ dout[rows of g]``. An empty group gives
+    exact zeros, rows past ``sum(group_sizes)`` add nothing, and a group
+    that runs past row M is cut there. float32 accumulation, output in
+    lhs's dtype. K6w's plain version (it syncs on the sizes, as
+    ``ragged_dot_plain`` does)."""
+    m, k = lhs.shape
+    out = torch.zeros((n_groups, k, dout.shape[1]), dtype=lhs.dtype,
+                      device=lhs.device)
+    for g, start, end in _group_bounds(group_sizes, m):
+        if end > start:
+            out[g] = torch.matmul(lhs[start:end].float().T,
+                                  dout[start:end].float()).to(lhs.dtype)
     return out

@@ -3,8 +3,8 @@
 
 The descriptors are shapes only and cover all ten architectures:
 ``n_params`` and ``params_from_numpy`` work for every config. The same
-tree drives random init here; the reference's abstract init (the
-dry-run's shape structs) belongs to the launch tooling.
+tree drives random init and ``abstract_params`` (the reference's shape
+structs, as meta tensors).
 
 Per-layer leaves are STACKED over a leading "layers" axis, as in the
 reference, so a parameter tree converted from the JAX package keeps its
@@ -217,16 +217,32 @@ def param_descriptors(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
-def _flatten(tree, prefix=()):
-    """(path, leaf) pairs in sorted-key order, the order in which JAX
-    flattens a dict tree."""
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def flatten_tree(tree, prefix=(), is_leaf=None):
+    """(path, leaf) pairs in the order in which JAX flattens a tree: dict
+    keys sorted, a NamedTuple's fields by name, a tuple's or list's
+    positions as ints. ``is_leaf(node)`` true stops the walk at ``node``."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
-                for kv in _flatten(tree[k], prefix + (k,))]
+                for kv in flatten_tree(tree[k], prefix + (k,), is_leaf)]
+    if _is_namedtuple(tree):
+        return [kv for f in tree._fields
+                for kv in flatten_tree(getattr(tree, f), prefix + (f,),
+                                       is_leaf)]
+    if isinstance(tree, (tuple, list)):
+        return [kv for i, x in enumerate(tree)
+                for kv in flatten_tree(x, prefix + (i,), is_leaf)]
     return [(prefix, tree)]
 
 
-def _unflatten(pairs):
+def unflatten_tree(pairs):
+    """The nested dict tree of (path, leaf) pairs (``flatten_tree``'s
+    inverse for a dict tree)."""
     out: Dict[str, Any] = {}
     for path, leaf in pairs:
         node = out
@@ -234,6 +250,45 @@ def _unflatten(pairs):
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+def rebuild_tree(like, leaves):
+    """``like``'s structure (dicts, NamedTuples, tuples, lists) with its
+    leaves taken in ``flatten_tree``'s order from the iterable ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(getattr(node, f))
+                                for f in node._fields))
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(x) for x in node)
+        return next(it)
+
+    return build(like)
+
+
+def tree_device(tree) -> torch.device:
+    """The device of a tree's first leaf."""
+    return flatten_tree(tree)[0][1].device
+
+
+def _descriptors(cfg: ModelConfig):
+    """(path, ParamDesc) pairs of ``cfg``'s parameters."""
+    return flatten_tree(param_descriptors(cfg),
+                        is_leaf=lambda x: isinstance(x, ParamDesc))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree on the meta device: every leaf with its shape in
+    ``cfg.param_dtype`` (as the reference's ``abstract_params``, which
+    ignores a descriptor's own dtype), and no memory allocated."""
+    dt = getattr(torch, cfg.param_dtype)
+    return unflatten_tree([
+        (path, torch.empty(pd.shape, dtype=dt, device="meta"))
+        for path, pd in _descriptors(cfg)])
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
@@ -256,5 +311,5 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None):
                         device=device)
         return w.div_(math.sqrt(pd.shape[-2])).to(dt)
 
-    return _unflatten([(path, one(pd))
-                       for path, pd in _flatten(param_descriptors(cfg))])
+    return unflatten_tree([
+        (path, one(pd)) for path, pd in _descriptors(cfg)])

@@ -27,6 +27,12 @@ reference's values:
     (``index_add_`` would use atomics in no fixed order on CUDA).
 The router weight is read as stored and cast to float32 at use; the
 forward's ``compute_params`` keeps it as stored for that reason.
+
+Every dispatch is differentiable, as the reference's is under
+``jax.value_and_grad``: in the ragged one the gradient flows through the
+gather ``xt[order // k]``, the k-way combine and K6's autograd Function
+(the experts' weight gradients from K6w on the card), so an expert that
+took no token gets exact zeros and every other one its gradient.
 """
 from __future__ import annotations
 
@@ -97,7 +103,8 @@ def moe_dense(x, p, cfg):
 
 
 def moe_ragged(x, p, cfg):
-    """Sort-based ragged dispatch over K6 (FLOP-honest)."""
+    """Sort-based ragged dispatch over K6 (FLOP-honest); differentiable
+    (K6 for the data gradient, K6w for the experts')."""
     m = cfg.moe
     b, s, d = x.shape
     cd = x.dtype

@@ -6,21 +6,26 @@ decode paths over KV, MLA latent, ring, recurrent and cross-attention
 caches.
 
 Entry points:
-  forward_lm(params, cfg, batch)            -> logits (prefill)
+  forward_lm(params, cfg, batch)            -> logits (train/prefill)
+  loss_fn(params, cfg, batch)               -> scalar CE loss
   init_cache(cfg, batch_size, max_len)      -> stacked decode cache
+  abstract_cache(cfg, batch_size, max_len)  -> the same on the meta device
   decode_step(params, cfg, tokens, cache)   -> logits, cache
   compute_params(params, cfg)               -> the weights as the forward
                                                reads them (cast once)
 
 The reference's layer scan becomes a Python loop over the stacked leaves.
-``loss_fn`` and the abstract (shape-only) trees come with the training
-slice.
+Its ``jax.checkpoint`` of a layer group (``cfg.remat == "block"``)
+becomes ``torch.utils.checkpoint`` of the same group, taken only where
+autograd records (so serving under ``inference_mode`` runs as before);
+recomputing a group changes no arithmetic.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.attention import (
@@ -183,18 +188,20 @@ def compute_params(params, cfg: ModelConfig, device=None):
     return walk(params)
 
 
-def forward_lm(params, cfg: ModelConfig, batch, remat=True):
-    """Logits (B, S, V) of a batch {"tokens": (B, S)} (plus "image_embeds"
-    (B, P, d) for a VLM, prepended to the sequence; for the
-    encoder-decoder {"enc_frames": (B, T, d), "dec_tokens": (B, S)}).
-    ``remat`` is accepted for the reference's signature and ignored:
-    nothing here takes a gradient."""
-    if cfg.encdec is not None:
-        return _forward_encdec(params, cfg, batch)
-    x = _embed_inputs(params, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    tables = _tables(cfg, positions, x.dtype)
-    for group in _groups(params, cfg):
+def _remat(fn, remat: bool, cfg: ModelConfig):
+    """``fn`` as the reference's ``jax.checkpoint`` would wrap it: where
+    ``remat`` and ``cfg.remat == "block"`` ask for it and autograd is
+    recording, its activations are recomputed in backward instead of
+    kept (only its inputs are saved)."""
+    if not (remat and cfg.remat == "block" and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _group_fn(cfg, tables):
+    """One layer group's blocks over x, the reference's ``group_fn``."""
+
+    def group_fn(x, group):
         for kind, p in group:
             if kind == "attn":
                 x, _ = _attn_block(x, p, cfg, tables, window=_window(cfg))
@@ -202,8 +209,45 @@ def forward_lm(params, cfg: ModelConfig, batch, remat=True):
                 x, _ = _rec_block(x, p, cfg)
             else:
                 x, _ = _rwkv_block(x, p, cfg)
+        return x
+
+    return group_fn
+
+
+def forward_lm(params, cfg: ModelConfig, batch, remat=True):
+    """Logits (B, S, V) of a batch {"tokens": (B, S)} (plus "image_embeds"
+    (B, P, d) for a VLM, prepended to the sequence; for the
+    encoder-decoder {"enc_frames": (B, T, d), "dec_tokens": (B, S)}).
+    With ``remat`` and ``cfg.remat == "block"``, each layer group (each
+    encoder and decoder layer of the encoder-decoder) is checkpointed
+    where a gradient is being recorded."""
+    if cfg.encdec is not None:
+        return _forward_encdec(params, cfg, batch, remat)
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    group_fn = _remat(_group_fn(cfg, _tables(cfg, positions, x.dtype)),
+                      remat, cfg)
+    for group in _groups(params, cfg):
+        x = group_fn(x, group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, remat=True):
+    """Mean next-token cross-entropy (the reference's ``loss_fn``): the
+    log-softmax in float32; a VLM's image prefix is unsupervised (only the
+    last ``tokens`` positions predict), and the encoder-decoder's targets
+    are ``dec_tokens[:, 1:]``."""
+    logits = forward_lm(params, cfg, batch, remat)
+    if cfg.encdec is not None:
+        targets = batch["dec_tokens"][:, 1:]
+    else:
+        s_txt = batch["tokens"].shape[1]
+        logits = logits[:, -s_txt:]
+        targets = batch["tokens"][:, 1:]
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -211,19 +255,24 @@ def forward_lm(params, cfg: ModelConfig, batch, remat=True):
 # ---------------------------------------------------------------------------
 
 
-def _encode(params, cfg, frames):
+def _encode(params, cfg, frames, remat=False):
     """The encoder's output (B, T, d) over frame embeddings (B, T, d) from
     the stub front end: bidirectional attention over frames + enc_pos."""
     cd = getattr(torch, cfg.compute_dtype)
     t = frames.shape[1]
     x = frames.to(cd) + params["enc_pos"][:t].to(cd)
     tables = _tables(cfg, torch.arange(t, device=x.device)[None, :], cd)
-    for p in _unstack(params["enc_layers"]):
+
+    def enc_fn(x, p):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         a, _ = _gqa(h, p, cfg, tables, causal=False)
         x = x + a
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, p["w1"], p["w3"], p["w2"], cd)
+        return x + swiglu(h, p["w1"], p["w3"], p["w2"], cd)
+
+    enc_fn = _remat(enc_fn, remat, cfg)
+    for p in _unstack(params["enc_layers"]):
+        x = enc_fn(x, p)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -258,14 +307,19 @@ def _dec_block(y, p, cfg, tables, enc_kv, cache=None):
     return y + swiglu(h, p["w1"], p["w3"], p["w2"], y.dtype), new_cache
 
 
-def _forward_encdec(params, cfg, batch):
+def _forward_encdec(params, cfg, batch, remat=False):
     cd = getattr(torch, cfg.compute_dtype)
-    enc_out = _encode(params, cfg, batch["enc_frames"])
+    enc_out = _encode(params, cfg, batch["enc_frames"], remat)
     y = params["embed"][batch["dec_tokens"]].to(cd)
     positions = torch.arange(y.shape[1], device=y.device)[None, :]
     tables = _tables(cfg, positions, cd)
+
+    def dec_fn(y, p, enc_out):
+        return _dec_block(y, p, cfg, tables, _cross_kv(p, cfg, enc_out))[0]
+
+    dec_fn = _remat(dec_fn, remat, cfg)
     for p in _unstack(params["dec_layers"]):
-        y, _ = _dec_block(y, p, cfg, tables, _cross_kv(p, cfg, enc_out))
+        y = dec_fn(y, p, enc_out)
     y = rms_norm(y, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, y)
 
@@ -383,6 +437,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, cache_dtype=None,
                        "att": zeros(lead + (cfg.d_model,)),
                        "ffn": zeros(lead + (cfg.d_model,)), "len": 0}
     return DecodeCache(**out)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   cache_dtype=None):
+    """``init_cache``'s tree on the meta device: every tensor with its
+    shape and dtype and no memory (the reference's ShapeDtypeStruct cache).
+    "len" stays the host integer 0."""
+    return init_cache(cfg, batch, max_len, cache_dtype, device="meta")
 
 
 def _write(state, new):

@@ -415,7 +415,8 @@ def test_guards():
     assert ops.native_kernels("cuda") and not ops.native_kernels("cpu")
     assert set(ops.launch_counts()) == {"fused_locate", "bmat_rank",
                                         "gmm_estep", "tile_search",
-                                        "spline_lookup", "ragged_dot"}
+                                        "spline_lookup", "ragged_dot",
+                                        "ragged_dot_wgrad"}
 
 
 # ---------------------------------------------------------------------------
