@@ -387,15 +387,18 @@ MOE_TRAIN_BATCH = (2, 512)
 MOE_TRAIN_TOP_K = 8         # qwen3-moe's top-k: K6 and K6w's M is B S top-k
 # phase 19: K6 and its backward at the shapes phase 19c's trainer launches
 # (qwen3-moe's up- and down-projections at 2 x 512 tokens x top-8; the
-# backward's K6 runs each at the other's shape), at phase 17c's shapes, and
-# with empty groups and rows past the sum; the trainers at full width
+# backward's K6 runs each at the other's shape), at phase 17c's shapes,
+# with one group of K6W_LONG_ROWS rows (K6w's ring wraps), with empty
+# groups and with rows past the sum; the trainers at full width
 _M_TRAIN = MOE_TRAIN_BATCH[0] * MOE_TRAIN_BATCH[1] * MOE_TRAIN_TOP_K
 K6W_CASES = {"qwen3_train_we1": ((_M_TRAIN, 2048, 768, 128), "routed"),
              "qwen3_train_we2": ((_M_TRAIN, 768, 2048, 128), "routed"),
              **{name: (shape, "routed") for name, shape in K6_SHAPES.items()},
+             "long_group": ((4096, 512, 384, 8), "long"),
              "empty": ((1000, 256, 192, 40), "empty"),
              "past_sum": ((1000, 256, 192, 40), "past")}
 K6W_PAST_ROWS = 300
+K6W_LONG_ROWS = 3000
 K6W_HEADLINE = "qwen3_train_we1 bfloat16"  # phase 19c's bf16 up-projection
 K6W_SOURCE = "src/repro_torch/kernels/csrc/ragged_dot_wgrad.cu"
 # the backward of jax.lax.ragged_dot (moe.py:81) under jax.value_and_grad
@@ -3572,14 +3575,17 @@ def k6w_inputs(torch, m, k, n, g, dtype, seed, kind, device="cuda"):
     sizes, and the output's gradient dout [M, N] (normals). ``kind``:
     ``"routed"`` every row in some group, ``"empty"`` every third group
     empty and 100 rows past the sum, ``"past"`` every group routed and
-    ``K6W_PAST_ROWS`` rows past the sum."""
+    ``K6W_PAST_ROWS`` rows past the sum, ``"long"`` group 1 holding
+    ``K6W_LONG_ROWS`` rows more than a uniform routing of the rest."""
     lhs, rhs, sizes = k6_inputs(torch, m, k, n, g, dtype, seed,
                                 empty=kind == "empty", device=device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    if kind == "past":
-        e = torch.randint(0, g, (m - K6W_PAST_ROWS,), generator=gen,
-                          device=device)
+    if kind in ("past", "long"):
+        cut = K6W_PAST_ROWS if kind == "past" else K6W_LONG_ROWS
+        e = torch.randint(0, g, (m - cut,), generator=gen, device=device)
         sizes = torch.bincount(e, minlength=g).to(torch.int32)
+        if kind == "long":
+            sizes[1] += cut
     dout = torch.randn(m, n, generator=gen, device=device).to(dtype)
     return lhs, rhs, sizes, dout
 
@@ -3623,9 +3629,10 @@ def _grouped_mm_wgrad(torch, lhs, dout, sizes):
 
 
 def _k6_backward(torch, lhs, rhs, sizes, dout):
-    """K6's whole backward as autograd runs it (the transposed copy of rhs
-    and K6 for lhs, K6w for rhs), repeatable: returns (the forward's
-    output, fn() -> (dlhs, drhs))."""
+    """K6's whole backward as autograd runs it (K6 for lhs, reading rhs
+    transposed in place on the TMA path or over a transposed copy on the
+    simple one; K6w for rhs), repeatable: returns (the forward's output,
+    fn() -> (dlhs, drhs))."""
     from repro_torch.kernels.ragged_dot import ragged_dot
 
     a = lhs.detach().requires_grad_(True)
@@ -3637,20 +3644,60 @@ def _k6_backward(torch, lhs, rhs, sizes, dout):
 
 
 
+def _backward_split(torch, back, iters: int):
+    """The backward's device ms per call split by kernel from the
+    profiler's events of ``iters`` calls: K6w (``ragged_dot_wgrad``), the
+    data gradient's K6 (the other ``ragged_dot`` kernels) and everything
+    else (the transposed copy, where the simple path makes one), with the
+    names of the latter; None where the profiler saw no device event."""
+    for _ in range(2):
+        back()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(iters):
+            back()
+
+    dev = _device_events(torch, body)
+    if dev is None:
+        return None
+    k6w = [e for e in dev if "ragged_dot_wgrad" in e.name]
+    k6 = [e for e in dev if "ragged_dot" in e.name and e not in k6w]
+    rest = [e for e in dev if "ragged_dot" not in e.name]
+    return {"k6w_ms": _per_call_ms(k6w, iters),
+            "dgrad_k6_ms": _per_call_ms(k6, iters),
+            "copy_ms": _per_call_ms(rest, iters),
+            "copy_kernels": sorted({e.name[:80] for e in rest})}
+
+
 def compare_k6w(torch, device="cuda"):
     """Phase 19a: K6's forward and backward on the card against the plain
     versions computed on the CPU, at the shapes phase 19c's trainer
     launches, at phase 17c's shapes (``K6_SHAPES``) and in a case with
-    empty groups and one with rows past the sum (``K6W_CASES``), in float32
-    and bfloat16, each held by ``_held``. Autograd's backward must launch K6 once (lhs) and K6w
-    once (rhs); a second K6w call must give the same bits; rows past the
+    one group whose rows wrap K6w's ring, a case with empty groups and one
+    with rows past the sum (``K6W_CASES``), in float32 and bfloat16, each
+    held by ``_held``. Autograd's backward must launch K6 once (lhs; in
+    its dgrad mode, reading rhs in place, on the TMA path) and K6w once
+    (rhs; on the path ``wgrad_path`` names); on TMA shapes it must make no
+    transposed copy of rhs (no device kernel beside K6's and K6w's, and a
+    peak below the two gradients and half of rhs); a second K6w call must
+    give the same bits; in float32 K6w must equal its simple kernel and
+    the dgrad mode K6 over a transposed copy bit for bit; rows past the
     sum get a zero lhs gradient and empty groups a zero rhs gradient. Then
-    each case's K6w device ms and call ms, the whole backward's (the
-    transposed copy included), the plain version's device ms on the card,
+    each case's K6w device ms and call ms beside the simple kernel's (the
+    first design, timed here), the whole backward's device ms split into K6w, the dgrad K6 and any copy, its
+    peak memory, the plain version's device ms on the card,
     ``F.grouped_mm``'s ragged-K form where it runs (the yardstick only)
     and the bound. Returns (max abs error, the headline timing with the
     other cases as variants)."""
-    from repro_torch.kernels.ragged_dot import ragged_dot, ragged_dot_wgrad
+    from repro_torch.kernels.ragged_dot import (
+        _k6,
+        _k6w,
+        path,
+        ragged_dot,
+        ragged_dot_wgrad,
+        wgrad_path,
+    )
     from repro_torch.kernels.ref import (
         ragged_dot_plain,
         ragged_dot_wgrad_plain,
@@ -3663,8 +3710,16 @@ def compare_k6w(torch, device="cuda"):
             lhs, rhs, sizes, dout = k6w_inputs(torch, m, k, n, g, dtype, 19,
                                                kind, device)
             out, back = _k6_backward(torch, lhs, rhs, sizes, dout)
+            which, dgrad = wgrad_path(lhs, dout), path(dout, rhs)
             k6, k6w = ragged_dot.launches, ragged_dot_wgrad.launches
+            k6p = dict(ragged_dot.launches_by_path)
+            k6wp = dict(ragged_dot_wgrad.launches_by_path)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
             dl, dr = back()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - mem0
             again = ragged_dot_wgrad(lhs, dout, sizes, g)
             torch.cuda.synchronize()
             require(ragged_dot.launches - k6 == 1
@@ -3672,7 +3727,30 @@ def compare_k6w(torch, device="cuda"):
                     f"{label}: backward launched K6 "
                     f"{ragged_dot.launches - k6} and K6w "
                     f"{ragged_dot_wgrad.launches - k6w - 1} times")
+            dgrad_key = "tma_dgrad" if dgrad == "tma" else "simple"
+            require(ragged_dot.launches_by_path[dgrad_key]
+                    - k6p[dgrad_key] == 1
+                    and ragged_dot_wgrad.launches_by_path[which]
+                    - k6wp[which] == 2,
+                    f"{label}: the backward left K6's {dgrad_key} or "
+                    f"K6w's {which} path")
+            grads = (dl.numel() + dr.numel()) * dl.element_size()
+            if dgrad == "tma":
+                require(peak < grads + rhs.numel() * rhs.element_size() // 2,
+                        f"{label}: the backward's peak {peak} bytes holds "
+                        f"a copy of rhs beside its gradients' {grads}")
             require(torch.equal(dr, again), f"{label}: two K6w calls differ")
+            bits = {}
+            if which == "tma":
+                bits["drhs_vs_simple"] = torch.equal(
+                    dr, _k6w(lhs, dout, sizes, g, "simple"))
+            if dgrad == "tma":
+                bits["dlhs_vs_copy"] = torch.equal(
+                    dl, _k6(dout, rhs.transpose(1, 2).contiguous(), sizes))
+            if dtype == torch.float32:
+                require(all(bits.values()),
+                        f"{label}: float32 differs from the simple kernel "
+                        f"or from K6 over the copy: {bits}")
             rows = min(int(sizes.clamp(min=0).sum()), m)
             require(not bool(dl[rows:].any()),
                     f"{label}: rows past the sum have a gradient")
@@ -3696,11 +3774,21 @@ def compare_k6w(torch, device="cuda"):
             lib, why = _grouped_mm_wgrad(torch, lhs, dout, sizes)
             n_bytes, bound = k6w_bound(torch, lhs, dout, sizes, g)
             wgrad = lambda: ragged_dot_wgrad(lhs, dout, sizes, g)  # noqa: E731
+            split = _backward_split(torch, back, 5)
+            if split and dgrad == "tma":
+                require(not split["copy_kernels"],
+                        f"{label}: the backward ran {split['copy_kernels']} "
+                        f"beside K6 and K6w")
             timings[label[4:]] = dict(
                 ms=device_ms(torch, wgrad, 10),
                 call_ms=call_ms(torch, wgrad, 10),
+                path=which, dgrad_path=dgrad,
+                simple_ms=device_ms(torch, lambda: _k6w(
+                    lhs, dout, sizes, g, "simple"), 3),
                 backward_ms=device_ms(torch, back, 5),
                 backward_call_ms=call_ms(torch, back, 5),
+                backward_split=split, backward_peak_bytes=peak,
+                gradient_bytes=grads, bit_equal=bits,
                 plain_ms=device_ms(torch, lambda: ragged_dot_wgrad_plain(
                     lhs, dout, sizes, g), 2),
                 library_ms=device_ms(torch, lib, 10) if lib else None,
@@ -3958,11 +4046,14 @@ def run_moe_trainer(torch, device="cuda"):
     drops (``_no_drops``): the same routes, and every leaf within
     ``MOE_GRAD_TOL`` of its largest gradient; then ``MOE_TRAIN_STEPS``
     trainer steps (bf16), each of which must launch K6 and K6w (3 K6w a
-    layer). Returns the report and the launches."""
+    layer, each on its TMA path, and as many data gradients in K6's dgrad
+    mode, with no transposed copy of rhs), with each step's ms and peak
+    memory. Returns the report and the launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ragged_dot import ragged_dot_wgrad
     from repro_torch.models import init_params
     from repro_torch.train import (
         AdamWConfig,
@@ -4035,6 +4126,10 @@ def run_moe_trainer(torch, device="cuda"):
     rep["steps"] = []
     for _ in range(MOE_TRAIN_STEPS):
         before, paths_before = ops.launch_counts(), _k6_paths()
+        w_before = dict(ragged_dot_wgrad.launches_by_path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         params, opt, loss, _ = step_fn(params, opt, batch)
         loss = float(loss)
@@ -4042,11 +4137,22 @@ def run_moe_trainer(torch, device="cuda"):
         now = ops.launch_counts()
         k6 = now["ragged_dot"] - before["ragged_dot"]
         k6w = now["ragged_dot_wgrad"] - before["ragged_dot_wgrad"]
-        rep["steps"].append({"ms": ms, "loss": loss, "k6": k6, "k6w": k6w,
-                             "k6_paths": _k6_paths(paths_before)})
+        k6_paths = _k6_paths(paths_before)
+        k6w_paths = {p: c - w_before[p]
+                     for p, c in ragged_dot_wgrad.launches_by_path.items()}
+        rep["steps"].append({
+            "ms": ms, "loss": loss, "k6": k6, "k6w": k6w,
+            "k6_paths": k6_paths, "k6w_paths": k6w_paths,
+            "peak_bytes": torch.cuda.max_memory_allocated() - mem0})
         require(math.isfinite(loss) and k6 > 0 and k6w == 3 * layers,
                 f"train moe: a step launched K6 {k6} and K6w {k6w} times "
                 f"(loss {loss})")
+        require(k6w_paths["tma"] == k6w and k6_paths["simple"] == 0
+                and k6_paths["tma_dgrad"] == k6w,
+                f"train moe: a step left the TMA paths or copied rhs: K6 "
+                f"{k6_paths}, K6w {k6w_paths}")
+    rep["k6w_paths"] = {p: sum(st["k6w_paths"][p] for st in rep["steps"])
+                        for p in ragged_dot_wgrad.launches_by_path}
     launches = ops.launch_counts()
     torch.cuda.synchronize()
     rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
@@ -4224,6 +4330,7 @@ def run_train_path(torch, device="cuda"):
     err, timing = compare_k6w(torch, device)
     dense_rep, dense_launches = run_dense_trainer(torch, device)
     moe_rep, moe_launches = run_moe_trainer(torch, device)
+    timing["kernel_paths"] = {"train_moe": moe_rep["k6w_paths"]}
     cpu_rep, cpu_launches = train_card_vs_cpu(torch, device)
     require(moe_launches["ragged_dot_wgrad"] > 0,
             "train: K6w did not launch on the MoE trainer's path")
@@ -4398,7 +4505,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
                                  "library_cold_ms", "library_error", "shape",
-                                 "path", "variants")
+                                 "path", "kernel_paths", "variants")
                if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -45,7 +45,8 @@ SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "ragged_dot.cu"
 START = "    // -- the float32 consumers\n"
 END = "    // -- end of the float32 consumers\n"
 STAGES = "constexpr int STAGES = 4;"
-F32_KERNEL = ("__global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)\n"
+F32_KERNEL = ("template <bool TB>\n"
+              "__global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)\n"
               "    ragged_dot_f32_tma(")
 A_MAP_SWIZZLE = ("a_box, ones,\n        CU_TENSOR_MAP_INTERLEAVE_NONE, sw,")
 
@@ -291,8 +292,8 @@ def build_variants(build, sources: dict) -> dict:
         cu, so = WORK / f"{name}.cu", WORK / f"{name}.so"
         cu.write_text(src)
         jobs.append((name, so, subprocess.Popen(
-            [build._nvcc(), *build.COMPILE_FLAGS, "-shared", str(cu), "-o",
-             str(so), *build.LINK_FLAGS],
+            [build._nvcc(), *build.COMPILE_FLAGS, "-shared", "-I",
+             str(build.CSRC), str(cu), "-o", str(so), *build.LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     fns = {}
     for name, so, proc in jobs:
@@ -349,7 +350,7 @@ def main() -> int:
                     build.check(fn(
                         lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
                         out.data_ptr(), m, k, n, g,
-                        int(dtype == torch.bfloat16), 1,
+                        int(dtype == torch.bfloat16), 1, 0,
                         torch.cuda.current_stream().cuda_stream), name)
 
                 launch()

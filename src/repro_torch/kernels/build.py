@@ -7,7 +7,7 @@ into one shared library with a plain ``extern "C"`` interface, loaded with
 ``build/repro_torch_kernels/`` at the repository root, and is keyed by a
 hash of the sources, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source or header rebuilds. The link adds ``libcuda``
-(``-lcuda``) for K6's TMA tensor maps.
+(``-lcuda``) for K6's and K6w's TMA tensor maps.
 
 The first load is guarded by a module lock: the gateway's flusher thread
 and the maintenance workers may all reach a kernel first, and two builds
@@ -33,13 +33,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
            "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu",
            "ragged_dot_wgrad.cu")
-HEADERS = ("key_delta.cuh",)
+HEADERS = ("key_delta.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
-# libcuda: K6 encodes its TMA tensor maps with cuTensorMapEncodeTiled
-# (nvcc finds the toolkit's link stub)
+# libcuda: K6 and K6w encode their TMA tensor maps with
+# cuTensorMapEncodeTiled (nvcc finds the toolkit's link stub)
 LINK_FLAGS = ("-lcuda",)
 
 _P = ctypes.c_void_p
@@ -61,10 +61,10 @@ SIGNATURES = {
     # pass_hi, stream
     "tile_search_launch": [_P] * 5 + [_I] + [ctypes.c_longlong] * 2
                           + [_I, _I, _P],
-    # lhs, rhs, group_sizes, out, m, k, n, g, bf16, tma, stream
-    "ragged_dot_launch": [_P] * 4 + [_I] * 6 + [_P],
-    # lhs, dout, group_sizes, drhs, m, k, n, g, bf16, stream
-    "ragged_dot_wgrad_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # lhs, rhs, group_sizes, out, m, k, n, g, bf16, tma, trans, stream
+    "ragged_dot_launch": [_P] * 4 + [_I] * 7 + [_P],
+    # lhs, dout, group_sizes, drhs, m, k, n, g, bf16, tma, stream
+    "ragged_dot_wgrad_launch": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

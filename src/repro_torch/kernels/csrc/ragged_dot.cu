@@ -66,6 +66,23 @@
 //     few FMAs. Layouts that spread those rows over more warps but took
 //     more loads per FMA (warps splitting columns, or half-width warps for
 //     tiles of at most 32 rows) ran no faster there.
+//   * The data gradient's mode (trans): rhs stored [G, N, K] is read
+//     transposed, out = lhs @ rhs[g]^T, so the backward needs no transposed
+//     copy of rhs. The same 3-D map over rhs (its dims as stored) and the
+//     same box shape; only the coordinates swap: the inner one is the
+//     reduction, the next the output column. bf16: the rhs stage is then
+//     K-major, described as lhs is (32 bytes a 16-deep step, SBO 1024),
+//     with wgmma's transpose-B bit 0. float32: the rhs stage is 128 rows of
+//     32 reduction values, in the 128-byte swizzle; a lane takes columns
+//     tx + 16 j and reads 16-byte chunks along the reduction, so the eight
+//     lanes of a quarter warp read eight different bank groups. Each output
+//     stays one fmaf chain over the reduction in order: the bits of K6 over
+//     a transposed copy.
+//   * While it encodes the maps and launches, the launcher makes the
+//     operands' device current on the calling thread and then restores the
+//     thread's device (hopper::DeviceOf): the encode (libcuda) needs a
+//     current context, which a thread whose only CUDA work is ours
+//     (autograd's worker) may not have.
 //   * The simple kernels (shapes TMA cannot describe): one CTA per 64 x 64
 //     output tile of an upper bound of row tiles, scalar loads into one
 //     shared-memory stage, WMMA bf16 or the same fmaf chain in float32.
@@ -77,10 +94,13 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int BM = 64;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Tile {
     int group;  // -1: zero rows past the sum
@@ -95,15 +115,6 @@ struct Cursor {
     long long row_base = 0;
     long long tile_base = 0;
 };
-
-__device__ __forceinline__ long long warp_incl_scan(long long v, int lane) {
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const long long u = __shfl_up_sync(kFull, v, o);
-        if (lane >= o) v += u;
-    }
-    return v;
-}
 
 // A whole warp: which group and rows row tile `tile` covers (every lane
 // gets the answer). `tile` is never below the previous call's on `c`.
@@ -143,104 +154,11 @@ __device__ Tile find_tile(const int* __restrict__ gs, int G, int M,
     return t;
 }
 
-// ------------------------------------------------------ TMA, mbarrier, wgmma
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                     smem_u32(bar)),
-                 "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-    const uint32_t a = smem_u32(bar);
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}"
-            : "=r"(done)
-            : "r"(a), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                     smem_u32(bar))
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-            smem_u32(bar)),
-        "r"(bytes)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-        "r"(c1)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
-            smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-        "r"(c1), "r"(c2)
-        : "memory");
-}
-
-// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) |
-           ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-           ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// d[64 x 64] += A[64 x 16] (K-major) x B[16 x 64] (N-major), bf16 in,
-// float32 accumulators in the wgmma fragment layout.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "setp.ne.b32 p, %34, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n\t}"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(1));
-}
-
 // -------------------------------------------------------- the TMA path
 
 // One stage: a BM x BK lhs box, then BK x BN of rhs as B_BOXES boxes of
-// B_BOX_N columns. Both dtypes take 24 KB a stage.
+// B_BOX_N columns (TB, rhs read transposed: BN x BK, B_BOX_N rows of BK
+// each). Both dtypes take 24 KB a stage.
 struct Bf16Cfg {
     using T = __nv_bfloat16;
     static constexpr int BN = 128, BK = 64, B_BOXES = 2, B_BOX_N = 64;
@@ -251,7 +169,8 @@ struct F32Cfg {
     using T = float;
     static constexpr int BN = 128, BK = 32, B_BOXES = 1, B_BOX_N = 128;
     static constexpr int CONSUMER_WARPS = 8;
-    static constexpr bool SWIZZLE = false;  // read along plain rows
+    static constexpr bool SWIZZLE = false;  // read along plain rows; TB's
+                                            // rhs box takes the 128-byte one
 };
 
 constexpr int STAGES = 4;
@@ -273,20 +192,12 @@ struct Item {
     int n0;
 };
 
-struct RingState {
-    int s = 0;
-    unsigned phase = 0;
-    __device__ __forceinline__ void next() {
-        if (++s == STAGES) {
-            s = 0;
-            phase ^= 1;
-        }
-    }
-};
+using RingState = RingPos<STAGES>;
 
 // The producer warp (the last warp of the CTA): finds each item's row tile
-// and fills the ring; lane 0 starts the copies.
-template <class C>
+// and fills the ring; lane 0 starts the copies. TB: rhs is stored [G, N, K]
+// (the map's inner coordinate is the reduction, the next the column).
+template <class C, bool TB>
 __device__ void produce(const CUtensorMap* lhs_map, const CUtensorMap* rhs_map,
                         const int* __restrict__ gs, int M, int K, int N,
                         int G, long long items, uint8_t* smem, uint64_t* full,
@@ -318,7 +229,8 @@ __device__ void produce(const CUtensorMap* lhs_map, const CUtensorMap* rhs_map,
                     for (int b = 0; b < C::B_BOXES; ++b)
                         tma_load_3d(st + R::A_BYTES + b * R::B_BOX_BYTES,
                                     rhs_map, &full[r.s],
-                                    n0 + b * C::B_BOX_N, kb * C::BK,
+                                    TB ? kb * C::BK : n0 + b * C::B_BOX_N,
+                                    TB ? n0 + b * C::B_BOX_N : kb * C::BK,
                                     t.group);
                 }
                 r.next();
@@ -365,12 +277,7 @@ __device__ __forceinline__ void store_bf16_half(
     }
 }
 
-// Consumers free a stage: one arrival per warp once its reads are done.
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty);
-}
-
+template <bool TB>
 __global__ void __launch_bounds__(Ring<Bf16Cfg>::THREADS)
     ragged_dot_bf16_tma(const __grid_constant__ CUtensorMap lhs_map,
                         const __grid_constant__ CUtensorMap rhs_map,
@@ -390,12 +297,12 @@ __global__ void __launch_bounds__(Ring<Bf16Cfg>::THREADS)
             mbar_init(&full[s], 1);
             mbar_init(&empty[s], C::CONSUMER_WARPS);
         }
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_fence_init();
     }
     __syncthreads();
     if (warp == C::CONSUMER_WARPS) {
-        produce<C>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
-                   empty, meta);
+        produce<C, TB>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
+                       empty, meta);
         return;
     }
     const int nkb = (K + C::BK - 1) / C::BK;
@@ -417,25 +324,33 @@ __global__ void __launch_bounds__(Ring<Bf16Cfg>::THREADS)
             if (kb > 0) mbar_wait(&full[r.s], r.phase);
             const uint32_t a = smem_u32(smem + r.s * R::STAGE_BYTES);
             const uint32_t b = a + R::A_BYTES;
-            asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+            wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < C::BK / 16; ++kk) {
                 // lhs: 128-byte rows of 64 k, 8-row groups 1024 bytes apart;
                 // a 16-deep step is 32 bytes along the row. rhs: 128-byte
                 // rows of 64 n per k, 8-k groups 1024 bytes apart; a step is
                 // 16 rows (2048 bytes); the two 64-column boxes are
-                // B_BOX_BYTES apart.
+                // B_BOX_BYTES apart. TB: rhs is K-major as lhs is (rows of
+                // 64 k per output column), a step 32 bytes along the row.
                 const uint64_t da = sw128_desc(a + kk * 32, 16, 1024);
-                wgmma_m64n64k16(
-                    acc0, da,
-                    sw128_desc(b + kk * 2048, R::B_BOX_BYTES, 1024));
-                wgmma_m64n64k16(
-                    acc1, da,
-                    sw128_desc(b + R::B_BOX_BYTES + kk * 2048,
-                               R::B_BOX_BYTES, 1024));
+                if (TB) {
+                    wgmma_m64n64k16<0, 0>(
+                        acc0, da, sw128_desc(b + kk * 32, 16, 1024));
+                    wgmma_m64n64k16<0, 0>(
+                        acc1, da,
+                        sw128_desc(b + R::B_BOX_BYTES + kk * 32, 16, 1024));
+                } else {
+                    wgmma_m64n64k16<0, 1>(
+                        acc0, da,
+                        sw128_desc(b + kk * 2048, R::B_BOX_BYTES, 1024));
+                    wgmma_m64n64k16<0, 1>(
+                        acc1, da,
+                        sw128_desc(b + R::B_BOX_BYTES + kk * 2048,
+                                   R::B_BOX_BYTES, 1024));
+                }
             }
-            asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-            asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+            wgmma_commit_and_wait();
             release(&empty[r.s], lane);
             r.next();
         }
@@ -446,6 +361,7 @@ __global__ void __launch_bounds__(Ring<Bf16Cfg>::THREADS)
     }
 }
 
+template <bool TB>
 __global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)
     ragged_dot_f32_tma(const __grid_constant__ CUtensorMap lhs_map,
                        const __grid_constant__ CUtensorMap rhs_map,
@@ -464,17 +380,18 @@ __global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)
             mbar_init(&full[s], 1);
             mbar_init(&empty[s], C::CONSUMER_WARPS);
         }
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_fence_init();
     }
     __syncthreads();
     if (warp == C::CONSUMER_WARPS) {
-        produce<C>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
-                   empty, meta);
+        produce<C, TB>(&lhs_map, &rhs_map, gs, M, K, N, G, items, smem, full,
+                       empty, meta);
         return;
     }
     const int nkb = (K + C::BK - 1) / C::BK;
     // -- the float32 consumers
-    // rows warp * 8 + ty * 4 + i, columns tx * 4 + j and 64 + tx * 4 + j
+    // rows warp * 8 + ty * 4 + i; columns tx * 4 + j and 64 + tx * 4 + j, or
+    // under TB tx + 16 j (below)
     const int ty = lane >> 4, tx = lane & 15;
     const int r_in = warp * 8 + ty * 4;
     RingState r;
@@ -507,24 +424,57 @@ __global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)
                     for (int i = 0; i < 4; ++i)
                         a[i] = *reinterpret_cast<const float4*>(
                             As + (r_in + i) * C::BK + k4);
+                    if (TB) {
+                        // Bs is [BN][BK] in the 128-byte swizzle: column c's
+                        // k4 .. k4 + 3 are 16-byte chunk (k4 / 4) ^ (c % 8)
+                        // of its 128-byte row. Columns tx + 16 j: the eight
+                        // lanes of a quarter warp read eight chunks of one
+                        // swizzle phase, no bank conflict.
+                        float4 bt[8];
 #pragma unroll
-                    for (int q = 0; q < 4; ++q) {
-                        const float* brow = Bs + (k4 + q) * C::BN + tx * 4;
-                        const float4 b0 =
-                            *reinterpret_cast<const float4*>(brow);
-                        const float4 b1 =
-                            *reinterpret_cast<const float4*>(brow + 64);
-                        const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                                             b1.x, b1.y, b1.z, b1.w};
+                        for (int j = 0; j < 8; ++j)
+                            bt[j] = *reinterpret_cast<const float4*>(
+                                Bs + (tx + 16 * j) * C::BK +
+                                (((k4 >> 2) ^ (tx & 7)) << 2));
 #pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                            const float av = q == 0   ? a[i].x
-                                             : q == 1 ? a[i].y
-                                             : q == 2 ? a[i].z
-                                                      : a[i].w;
+                        for (int q = 0; q < 4; ++q) {
 #pragma unroll
-                            for (int j = 0; j < 8; ++j)
-                                acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+                            for (int i = 0; i < 4; ++i) {
+                                const float av = q == 0   ? a[i].x
+                                                 : q == 1 ? a[i].y
+                                                 : q == 2 ? a[i].z
+                                                          : a[i].w;
+#pragma unroll
+                                for (int j = 0; j < 8; ++j) {
+                                    const float bv = q == 0   ? bt[j].x
+                                                     : q == 1 ? bt[j].y
+                                                     : q == 2 ? bt[j].z
+                                                              : bt[j].w;
+                                    acc[i][j] = fmaf(av, bv, acc[i][j]);
+                                }
+                            }
+                        }
+                    } else {
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) {
+                            const float* brow =
+                                Bs + (k4 + q) * C::BN + tx * 4;
+                            const float4 b0 =
+                                *reinterpret_cast<const float4*>(brow);
+                            const float4 b1 =
+                                *reinterpret_cast<const float4*>(brow + 64);
+                            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                                 b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+                            for (int i = 0; i < 4; ++i) {
+                                const float av = q == 0   ? a[i].x
+                                                 : q == 1 ? a[i].y
+                                                 : q == 2 ? a[i].z
+                                                          : a[i].w;
+#pragma unroll
+                                for (int j = 0; j < 8; ++j)
+                                    acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+                            }
                         }
                     }
                 }
@@ -537,6 +487,14 @@ __global__ void __launch_bounds__(Ring<F32Cfg>::THREADS)
         for (int i = 0; i < 4; ++i) {
             const int row = it.row0 + r_in + i;
             if (row >= it.row1) continue;
+            if (TB) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int col = it.n0 + tx + 16 * j;
+                    if (col < N) out[(size_t)row * N + col] = acc[i][j];
+                }
+                continue;
+            }
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int col = it.n0 + h * 64 + tx * 4;
@@ -737,26 +695,33 @@ __global__ void __launch_bounds__(256) ragged_dot_f32_simple(
 // ------------------------------------------------------------- launchers
 
 // lhs [M, K] as a 2-D map (K inner) in BM x BK boxes; rhs [G, K, N] as a
-// 3-D map (N inner, then K, then G) in B_BOX_N x BK x 1 boxes. bf16 takes
-// the 128-byte swizzle wgmma reads, float32 none (its consumers read rows).
+// 3-D map (N inner, then K, then G) in B_BOX_N x BK x 1 boxes, or under
+// `trans` rhs stored [G, N, K] (K inner: the reduction) in BK x B_BOX_N x 1
+// boxes. bf16 takes the 128-byte swizzle wgmma reads; float32 none for lhs
+// and the forward's rhs (its consumers read rows) and the 128-byte one for
+// the transposed rhs (its consumers read columns: the swizzle spreads them
+// over the banks).
 template <class C>
 int encode_maps(const void* lhs, const void* rhs, int m, int k, int n, int g,
-                CUtensorMap* a_map, CUtensorMap* b_map) {
+                bool trans, CUtensorMap* a_map, CUtensorMap* b_map) {
     const bool bf16 = sizeof(typename C::T) == 2;
     const CUtensorMapDataType dt = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     const CUtensorMapSwizzle sw =
         C::SWIZZLE ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE;
+    const CUtensorMapSwizzle b_sw =
+        trans ? CU_TENSOR_MAP_SWIZZLE_128B : sw;
     const cuuint64_t el = sizeof(typename C::T);
     const cuuint32_t ones[3] = {1, 1, 1};
     const cuuint64_t a_dim[2] = {(cuuint64_t)k, (cuuint64_t)m};
     const cuuint64_t a_str[1] = {(cuuint64_t)k * el};
     const cuuint32_t a_box[2] = {(cuuint32_t)C::BK, (cuuint32_t)BM};
-    const cuuint64_t b_dim[3] = {(cuuint64_t)n, (cuuint64_t)k, (cuuint64_t)g};
-    const cuuint64_t b_str[2] = {(cuuint64_t)n * el,
-                                 (cuuint64_t)n * (cuuint64_t)k * el};
-    const cuuint32_t b_box[3] = {(cuuint32_t)C::B_BOX_N, (cuuint32_t)C::BK,
-                                 1};
+    const cuuint64_t inner = trans ? k : n, outer = trans ? n : k;
+    const cuuint64_t b_dim[3] = {inner, outer, (cuuint64_t)g};
+    const cuuint64_t b_str[2] = {inner * el, inner * outer * el};
+    const cuuint32_t b_box[3] = {
+        (cuuint32_t)(trans ? C::BK : C::B_BOX_N),
+        (cuuint32_t)(trans ? C::B_BOX_N : C::BK), 1};
     CUresult r = cuTensorMapEncodeTiled(
         a_map, dt, 2, const_cast<void*>(lhs), a_dim, a_str, a_box, ones,
         CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -764,43 +729,20 @@ int encode_maps(const void* lhs, const void* rhs, int m, int k, int n, int g,
     if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
     r = cuTensorMapEncodeTiled(
         b_map, dt, 3, const_cast<void*>(rhs), b_dim, b_str, b_box, ones,
-        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        CU_TENSOR_MAP_INTERLEAVE_NONE, b_sw,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-// CTAs the persistent grid may keep on the card: SMs x CTAs per SM, from
-// the occupancy of `kernel` (asked once per kernel and device).
-template <class C, typename K>
-int persistent_ctas(K kernel, int* cache) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return -(int)e;
-    if (dev >= 0 && dev < 64 && cache[dev] > 0) return cache[dev];
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Ring<C>::SMEM);
-    if (e != cudaSuccess) return -(int)e;
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return -(int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, Ring<C>::THREADS, Ring<C>::SMEM);
-    if (e != cudaSuccess) return -(int)e;
-    if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-    const int ctas = sms * per_sm;
-    if (dev >= 0 && dev < 64) cache[dev] = ctas;
-    return ctas;
 }
 
 template <class C, typename K>
 int launch_tma(K kernel, int* cache, const void* lhs, const void* rhs,
                const int* gs, void* out, int m, int k, int n, int g,
-               cudaStream_t st) {
+               bool trans, cudaStream_t st) {
     CUtensorMap a_map, b_map;
-    int err = encode_maps<C>(lhs, rhs, m, k, n, g, &a_map, &b_map);
+    int err = encode_maps<C>(lhs, rhs, m, k, n, g, trans, &a_map, &b_map);
     if (err) return err;
-    const int ctas = persistent_ctas<C>(kernel, cache);
+    const int ctas =
+        persistent_ctas(kernel, Ring<C>::THREADS, Ring<C>::SMEM, cache);
     if (ctas < 0) return -ctas;
     const long long items =
         ((m + BM - 1LL) / BM + g + 1) * ((n + C::BN - 1LL) / C::BN);
@@ -810,27 +752,43 @@ int launch_tma(K kernel, int* cache, const void* lhs, const void* rhs,
     return (int)cudaGetLastError();
 }
 
-int bf16_ctas[64], f32_ctas[64];
+// persistent grid sizes, per kernel (forward, transposed) and device
+int bf16_ctas[2][64], f32_ctas[2][64];
 
 }  // namespace
 
-// bf16: 1 for bfloat16, 0 for float32. vec: the TMA path (K and N are
-// multiples of the 16-byte vector, 8 bf16 or 4 float32, K and G are
-// positive and lhs and rhs are 16-byte aligned); else the simple kernels.
+// lhs [M, K], out [M, N]; rhs [G, K, N], or with trans = 1 rhs stored
+// [G, N, K] and read transposed (out = lhs @ rhs[g]^T: K6's data gradient,
+// with no transposed copy). bf16: 1 for bfloat16, 0 for float32. vec: the
+// TMA path (K and N are multiples of the 16-byte vector, 8 bf16 or 4
+// float32, K and G are positive and lhs and rhs are 16-byte aligned); else
+// the simple kernels, which take no trans.
 extern "C" int ragged_dot_launch(
     const void* lhs, const void* rhs, const void* group_sizes, void* out,
-    int m, int k, int n, int g, int bf16, int vec, void* stream) {
+    int m, int k, int n, int g, int bf16, int vec, int trans, void* stream) {
     if (m <= 0 || n <= 0) return 0;
     if (k < 0 || g < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const int* gs = (const int*)group_sizes;
     if (vec) {
         if (k == 0 || g == 0) return (int)cudaErrorInvalidValue;
-        return bf16 ? launch_tma<Bf16Cfg>(ragged_dot_bf16_tma, bf16_ctas,
-                                          lhs, rhs, gs, out, m, k, n, g, st)
-                    : launch_tma<F32Cfg>(ragged_dot_f32_tma, f32_ctas, lhs,
-                                         rhs, gs, out, m, k, n, g, st);
+        const DeviceOf dev(lhs);  // until the launch has returned
+        if (dev.err != cudaSuccess) return (int)dev.err;
+        if (bf16)
+            return trans ? launch_tma<Bf16Cfg>(
+                               ragged_dot_bf16_tma<true>, bf16_ctas[1], lhs,
+                               rhs, gs, out, m, k, n, g, true, st)
+                         : launch_tma<Bf16Cfg>(
+                               ragged_dot_bf16_tma<false>, bf16_ctas[0], lhs,
+                               rhs, gs, out, m, k, n, g, false, st);
+        return trans ? launch_tma<F32Cfg>(ragged_dot_f32_tma<true>,
+                                          f32_ctas[1], lhs, rhs, gs, out, m,
+                                          k, n, g, true, st)
+                     : launch_tma<F32Cfg>(ragged_dot_f32_tma<false>,
+                                          f32_ctas[0], lhs, rhs, gs, out, m,
+                                          k, n, g, false, st);
     }
+    if (trans) return (int)cudaErrorInvalidValue;
     const long long tiles_m = (m + BM - 1LL) / BM + g + 1;
     const long long tiles_n = (n + BN_S - 1LL) / BN_S;
     if (tiles_m > 0x7FFFFFFFLL || tiles_n > 65535)

@@ -237,5 +237,6 @@ def reset_launch_counts() -> None:
     _locate.spline_lookup.launches = 0
     _ragged.ragged_dot.launches = 0
     _ragged.ragged_dot_wgrad.launches = 0
-    for p in _ragged.ragged_dot.launches_by_path:
-        _ragged.ragged_dot.launches_by_path[p] = 0
+    for wrapper in (_ragged.ragged_dot, _ragged.ragged_dot_wgrad):
+        for p in wrapper.launches_by_path:
+            wrapper.launches_by_path[p] = 0

@@ -1,4 +1,5 @@
-"""K6 — the grouped matrix product of the MoE layer's ragged dispatch.
+"""K6 — the grouped matrix product of the MoE layer's ragged dispatch,
+and its backward.
 
 Replaces XLA's ``jax.lax.ragged_dot`` in ``moe_ragged``
 (``src/repro/models/moe.py:81-83``), the one op of the reference that is
@@ -21,15 +22,29 @@ and runs the plain version for CPU tensors; ``ragged_dot.launches`` counts
 the CUDA launches and ``ragged_dot.launches_by_path`` splits them by path.
 
 ``ragged_dot`` is differentiable (``_RaggedDot``, the rule XLA gives
-``jax.lax.ragged_dot`` under ``jax.value_and_grad``): the gradient of lhs
-is K6 itself over the output's gradient and ``rhs`` transposed to
-[G, N, K] (a copy of G K N elements), and the gradient of rhs is K6w
-(``ragged_dot_wgrad``, ``csrc/ragged_dot_wgrad.cu``), one CTA per output
-tile looping over its group's rows, deterministic. Backward's K6 launches
-count in ``ragged_dot.launches`` as the forward's do, K6w's in
-``ragged_dot_wgrad.launches``. On CPU tensors both directions run the
-plain versions; on CUDA tensors a kernel that fails to build or launch
-raises, and nothing gives way to the plain version.
+``jax.lax.ragged_dot`` under ``jax.value_and_grad``). The gradient of lhs
+is K6 itself over the output's gradient and ``rhs`` read transposed: on
+the TMA path the kernel's ``trans`` mode loads rhs as it is stored (the
+same tensor map, its coordinates swapped) with the reduction along rhs's
+contiguous axis, so no transposed copy of G K N elements is made; its
+launches count under ``"tma_dgrad"``. The simple path, and the CPU, read
+``rhs.transpose(1, 2)`` (the simple kernel from a contiguous copy). The
+gradient of rhs is K6w (``ragged_dot_wgrad``,
+``csrc/ragged_dot_wgrad.cu``): on its TMA path a persistent grid walks
+(group, 128 x 128 output tile) items group by group, TMA brings the
+group's rows of lhs and dout through a shared-memory ring, ``wgmma``
+(bfloat16) or fmaf warps (float32) reduce over them, and TMA stores each
+tile; the output's 2 G K N bytes bound it in bfloat16, the fmaf rate in
+float32. Rows of the next group in a group's last stage are zeroed before
+the tensor cores read them; every output is owned by one item and summed
+in one order, so two calls give the same bits. Its simple path (one CTA
+per 64 x 64 tile) takes the shapes TMA cannot describe and, on the card,
+holds the TMA path to the same float32 bits. Backward's K6 launches count
+in ``ragged_dot.launches`` as the forward's do, K6w's in
+``ragged_dot_wgrad.launches`` and ``ragged_dot_wgrad.launches_by_path``.
+On CPU tensors both directions run the plain versions; on CUDA tensors a
+kernel that fails to build or launch raises, and nothing gives way to the
+plain version.
 """
 from __future__ import annotations
 
@@ -45,16 +60,32 @@ _INT32_MAX = (1 << 31) - 1
 
 
 def path(lhs, rhs) -> str:
-    """Which K6 kernel takes ``lhs`` [M, K] and ``rhs`` [G, K, N]:
-    ``"tma"`` where a TMA tensor map can describe both (K and N multiples
-    of the 16-byte vector, 8 bfloat16 or 4 float32; K and G positive; both
-    bases 16-byte aligned), else ``"simple"``. Shape and alignment only,
-    never a failure."""
+    """Which K6 kernel takes ``lhs`` [M, K] and ``rhs`` [G, K, N] (or, for
+    the data gradient, [G, N, K] read transposed: the test is symmetric in
+    K and N): ``"tma"`` where a TMA tensor map can describe both (K and N
+    multiples of the 16-byte vector, 8 bfloat16 or 4 float32; K and G
+    positive; both bases 16-byte aligned), else ``"simple"``. Shape and
+    alignment only, never a failure."""
     k = lhs.shape[1]
-    g, _, n = rhs.shape
+    g, k2, n = rhs.shape
     per_vec = 16 // lhs.element_size()  # elements in a 16-byte vector
-    fits = (k % per_vec == 0 and n % per_vec == 0 and k > 0 and g > 0
+    fits = (k % per_vec == 0 and k2 % per_vec == 0 and n % per_vec == 0
+            and k > 0 and g > 0
             and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0)
+    return "tma" if fits else "simple"
+
+
+def wgrad_path(lhs, dout) -> str:
+    """Which K6w kernel takes ``lhs`` [M, K] and ``dout`` [M, N]: ``"tma"``
+    where TMA tensor maps can describe them and the [G, K, N] output (K
+    and N multiples of the 16-byte vector, M positive, both bases 16-byte
+    aligned; the output is allocated aligned), else ``"simple"``. Shape
+    and alignment only, never a failure."""
+    m, k = lhs.shape
+    n = dout.shape[1]
+    per_vec = 16 // lhs.element_size()
+    fits = (k % per_vec == 0 and n % per_vec == 0 and m > 0
+            and lhs.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0)
     return "tma" if fits else "simple"
 
 
@@ -97,16 +128,20 @@ def _check_operands(kernel: str, lhs, name: str, other, group_sizes):
             raise ValueError(f"{kernel}: {what} must be contiguous")
 
 
-def _k6(lhs, rhs, group_sizes):
-    """K6's forward: the launch on CUDA tensors, the plain version on CPU
-    ones."""
+def _k6(lhs, rhs, group_sizes, trans: bool = False):
+    """K6: the launch on CUDA tensors, the plain version on CPU ones.
+    ``trans``: ``rhs`` is [G, N, K] and is read transposed (``lhs @
+    rhs[g].T``), on the TMA path only."""
     if not _on_cuda(lhs, "ragged_dot"):
-        return ragged_dot_plain(lhs, rhs, group_sizes)
+        return ragged_dot_plain(lhs, rhs.transpose(1, 2) if trans else rhs,
+                                group_sizes)
     if lhs.dim() != 2 or rhs.dim() != 3 or group_sizes.dim() != 1:
         raise ValueError("K6 takes lhs [M, K], rhs [G, K, N] and "
                          "group_sizes [G]")
     m, k = lhs.shape
     g, k2, n = rhs.shape
+    if trans:
+        k2, n = n, k2
     if k2 != k or group_sizes.shape[0] != g:
         raise ValueError(f"K6: lhs {tuple(lhs.shape)}, rhs "
                          f"{tuple(rhs.shape)} and group_sizes "
@@ -118,19 +153,21 @@ def _k6(lhs, rhs, group_sizes):
     if m == 0 or n == 0:
         return out
     which = path(lhs, rhs)
+    if trans and which != "tma":
+        raise ValueError("K6 reads rhs transposed on the TMA path only")
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.library().ragged_dot_launch(
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
         out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
-        int(which == "tma"), stream,
+        int(which == "tma"), int(trans), stream,
     )
     build.check(err, "ragged_dot")
-    build.count_launch(ragged_dot, which)
+    build.count_launch(ragged_dot, "tma_dgrad" if trans else which)
     return out
 
 
 ragged_dot.launches = 0
-ragged_dot.launches_by_path = {"tma": 0, "simple": 0}
+ragged_dot.launches_by_path = {"tma": 0, "tma_dgrad": 0, "simple": 0}
 
 
 def ragged_dot_wgrad(lhs, dout, group_sizes, n_groups: int):
@@ -138,8 +175,17 @@ def ragged_dot_wgrad(lhs, dout, group_sizes, n_groups: int):
     respect to rhs, from the output's gradient ``dout`` [M, N]:
     [G, K, N] in lhs's dtype (float32 accumulation), ``drhs[g] =
     lhs[rows of g].T @ dout[rows of g]``, zeros for an empty group, rows
-    past the sum ignored. The CUDA kernel for CUDA tensors (it reads the
-    sizes on the device), the plain version for CPU tensors."""
+    past the sum ignored. The CUDA kernel that ``wgrad_path`` picks for
+    CUDA tensors (it reads the sizes on the device), the plain version for
+    CPU tensors."""
+    return _k6w(lhs, dout, group_sizes, n_groups)
+
+
+def _k6w(lhs, dout, group_sizes, n_groups: int, which: str | None = None):
+    """K6w: the launch on CUDA tensors, the plain version on CPU ones.
+    ``which``: the kernel, ``wgrad_path``'s choice by default; ``"simple"``
+    runs the simple kernel whatever the shape, which holds the TMA path to
+    its float32 bits on the card."""
     if not _on_cuda(lhs, "ragged_dot_wgrad"):
         return ragged_dot_wgrad_plain(lhs, dout, group_sizes, n_groups)
     if lhs.dim() != 2 or dout.dim() != 2 or group_sizes.dim() != 1:
@@ -158,25 +204,28 @@ def ragged_dot_wgrad(lhs, dout, group_sizes, n_groups: int):
     out = torch.empty((n_groups, k, n), dtype=lhs.dtype, device=lhs.device)
     if out.numel() == 0:
         return out
+    which = which or wgrad_path(lhs, dout)
     stream = torch.cuda.current_stream(lhs.device).cuda_stream
     err = build.library().ragged_dot_wgrad_launch(
         lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
         out.data_ptr(), m, k, n, n_groups, int(lhs.dtype == torch.bfloat16),
-        stream,
+        int(which == "tma"), stream,
     )
     build.check(err, "ragged_dot_wgrad")
-    build.count_launch(ragged_dot_wgrad)
+    build.count_launch(ragged_dot_wgrad, which)
     return out
 
 
 ragged_dot_wgrad.launches = 0
+ragged_dot_wgrad.launches_by_path = {"tma": 0, "simple": 0}
 
 
 class _RaggedDot(torch.autograd.Function):
-    """K6 forward; backward: K6 over (dout, rhs transposed) for lhs, K6w
-    for rhs, each only where its input needs a gradient. Rows past the
-    sum get a zero lhs gradient (K6 writes zeros there) and add nothing
-    to rhs's."""
+    """K6 forward; backward: K6 over (dout, rhs read transposed) for lhs,
+    K6w for rhs, each only where its input needs a gradient. Rows past
+    the sum get a zero lhs gradient (K6 writes zeros there) and add
+    nothing to rhs's. The data gradient copies rhs transposed only where
+    K6 takes the simple path on CUDA tensors."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes):
@@ -189,7 +238,11 @@ class _RaggedDot(torch.autograd.Function):
         dout = dout.contiguous()
         dlhs = drhs = None
         if ctx.needs_input_grad[0]:
-            dlhs = _k6(dout, rhs.transpose(1, 2).contiguous(), group_sizes)
+            if dout.device.type == "cpu" or path(dout, rhs) == "tma":
+                dlhs = _k6(dout, rhs, group_sizes, trans=True)
+            else:
+                dlhs = _k6(dout, rhs.transpose(1, 2).contiguous(),
+                           group_sizes)
         if ctx.needs_input_grad[1]:
             drhs = ragged_dot_wgrad(lhs, dout, group_sizes, rhs.shape[0])
         return dlhs, drhs, None

@@ -1,9 +1,11 @@
 """K6's backward: ``ragged_dot``'s gradients (``kernels.ragged_dot``:
-K6 over the output's gradient and rhs transposed for lhs, K6w for rhs)
-against ``jax.grad`` of ``jax.lax.ragged_dot``, K6w's plain version
-(``ragged_dot_wgrad_plain``) against a per-group loop, and ``moe_ragged``'s
-gradients against ``moe_dense``'s, on the CPU (and on the card where
-marked).
+K6 over the output's gradient and rhs read transposed for lhs, K6w for
+rhs) against ``jax.grad`` of ``jax.lax.ragged_dot``, K6w's plain version
+(``ragged_dot_wgrad_plain``) against a per-group loop, the kernels' path
+choices, and ``moe_ragged``'s gradients against ``moe_dense``'s, on the CPU
+(and on the card where marked: K6w's TMA path against its plain version
+and, in float32, bit for bit against its simple kernel; K6's dgrad mode
+against K6 over a transposed copy of rhs).
 
 Tolerances. float32: within ``F32_TOL`` = 1e-4, relative and absolute, as
 K6's forward is held (the frameworks sum the same products in other
@@ -17,6 +19,7 @@ dense dispatch's (at capacity 8, where nothing drops, the two are one
 function) within ``F32_TOL`` in float32.
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -27,6 +30,7 @@ import jax
 import jax.numpy as jnp
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import ops
+from repro_torch.kernels import ragged_dot as rd
 from repro_torch.kernels.ragged_dot import ragged_dot, ragged_dot_wgrad
 from repro_torch.kernels.ref import ragged_dot_plain, ragged_dot_wgrad_plain
 from repro_torch.models import moe as tmoe
@@ -148,6 +152,135 @@ def test_cpu_backward_runs_the_plain_versions():
                                                   rhs.shape[0]))
     assert torch.equal(dr, ragged_dot_wgrad(lhs, dout, sizes, rhs.shape[0]))
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["small", "wide", "odd", "past_m"])
+def test_cpu_data_gradient_reads_rhs_in_place(case, dtype, monkeypatch):
+    """The CPU backward hands the plain version rhs's transposed view (no
+    copy: the view shares rhs's storage), and its lhs gradient equals
+    ``jax.vjp``'s."""
+    lhs, rhs, sizes, dout = _case(case)
+    jdt, tdt = DTYPES[dtype]
+    seen = []
+
+    def spy(a, b, gs):
+        seen.append(b)
+        return ragged_dot_plain(a, b, gs)
+
+    monkeypatch.setattr(rd, "ragged_dot_plain", spy)
+    t_rhs = torch.from_numpy(rhs).to(tdt)
+    _, got_l, _ = _port_grads(torch.from_numpy(lhs).to(tdt), t_rhs,
+                              torch.from_numpy(sizes),
+                              torch.from_numpy(dout).to(tdt))
+    assert len(seen) == 2  # the forward, then the data gradient
+    view = seen[1]
+    assert view.shape == (rhs.shape[0], rhs.shape[2], rhs.shape[1])
+    assert view.data_ptr() == t_rhs.data_ptr() and not view.is_contiguous()
+    jl, jr, jd = (jnp.asarray(a).astype(jdt) for a in (lhs, rhs, dout))
+    _, vjp = jax.vjp(
+        lambda a, b: jax.lax.ragged_dot(a, b, jnp.asarray(sizes)), jl, jr)
+    _close(got_l, vjp(jd)[0], dtype)
+
+
+@pytest.mark.parametrize("case", ["small", "wide", "odd", "past_m",
+                                  "negative"])
+def test_k6_trans_mode_on_cpu_is_the_transposed_product(case):
+    """``_k6(..., trans=True)`` on CPU tensors: rhs stored [G, K, N] read
+    as [G, N, K], against numpy group by group in float64 (rows past the
+    sum zero, each group's rows cut as the reference cuts them)."""
+    lhs, rhs, sizes, dout = _case(case)
+    got = rd._k6(torch.from_numpy(dout), torch.from_numpy(rhs),
+                 torch.from_numpy(sizes), trans=True)
+    want = np.zeros(lhs.shape)
+    start, m = 0, lhs.shape[0]
+    for g, size in enumerate(np.maximum(sizes, 0)):
+        end = min(start + size, m)
+        want[start:end] = dout[start:end].astype(np.float64) @ rhs[g].T
+        start = end
+    assert got.dtype == torch.float32 and got.shape == lhs.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def _fmaf_rows(a, b, block=None):
+    """K6w's float32 sum of ``a.T @ b`` over the rows, as the kernels run
+    it: one fmaf chain from 0 over the rows in order (each step rounded
+    once: the float32 product is exact in float64), or with ``block`` one
+    chain per ``block`` rows, the blocks' sums added in order."""
+    total = np.zeros((a.shape[1], b.shape[1]), np.float32)
+    acc = np.zeros_like(total)
+    for r in range(a.shape[0]):
+        acc = (acc.astype(np.float64) + np.outer(
+            a[r].astype(np.float64), b[r].astype(np.float64))).astype(
+            np.float32)
+        if block and ((r + 1) % block == 0 or r + 1 == a.shape[0]):
+            total, acc = total + acc, np.zeros_like(acc)
+    return total if block else acc
+
+
+def test_blocked_sums_on_a_long_group():
+    """Why float32 K6w sums a group in blocks of 128 rows: over 3,500 rows
+    of unit normals one fmaf chain drifts past ``F32_TOL`` of the float64
+    sum (1.8 times it), the blocks stay within a third of it (0.28), closer
+    than the CPU's matmul (the plain version, 0.46)."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((3500, 128)).astype(np.float32)
+    b = rng.standard_normal((3500, 96)).astype(np.float32)
+    exact = a.astype(np.float64).T @ b.astype(np.float64)
+    tol = F32_TOL * (1 + np.abs(exact))
+    chain = np.abs(_fmaf_rows(a, b) - exact) / tol
+    blocks = np.abs(_fmaf_rows(a, b, 128) - exact) / tol
+    plain = np.abs(ragged_dot_wgrad_plain(
+        torch.from_numpy(a), torch.from_numpy(b),
+        torch.tensor([3500], dtype=torch.int32), 1)[0].numpy() - exact) / tol
+    assert chain.max() > 1 and blocks.max() < 1 / 3
+    assert blocks.max() < plain.max()
+
+
+# (M, K, N, dtype, element offset of lhs's view) -> K6w's path
+WGRAD_PATHS = {
+    "bf16_aligned": ((64, 2048, 768, "bfloat16", 0), "tma"),
+    "f32_aligned": ((64, 768, 2048, "float32", 0), "tma"),
+    "bf16_k_on_8": ((64, 200, 72, "bfloat16", 0), "tma"),
+    "f32_n_on_4": ((64, 100, 68, "float32", 0), "tma"),
+    "bf16_k_off_8": ((64, 100, 64, "bfloat16", 0), "simple"),
+    "bf16_n_off_8": ((64, 64, 70, "bfloat16", 0), "simple"),
+    "f32_n_off_4": ((64, 64, 70, "float32", 0), "simple"),
+    "empty_m": ((0, 64, 64, "float32", 0), "simple"),
+    "view_off_16": ((64, 64, 64, "float32", 1), "simple"),
+    "view_on_16": ((64, 64, 64, "bfloat16", 8), "tma"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WGRAD_PATHS))
+def test_wgrad_path_by_shape_and_alignment(case):
+    """K6w's path depends on shape and alignment only, so it is decided
+    the same on CPU tensors: TMA where K and N are multiples of the
+    16-byte vector, M is positive and the bases are 16-byte aligned."""
+    (m, k, n, dtype, off), want = WGRAD_PATHS[case]
+    tdt = DTYPES[dtype][1]
+    buf = torch.zeros(m * k + off + 64, dtype=tdt)
+    base = (-buf.data_ptr() // buf.element_size()) % (64 // buf.element_size())
+    lhs = buf[base + off:base + off + m * k].view(m, k)
+    dout = torch.zeros(m, n, dtype=tdt)
+    assert rd.wgrad_path(lhs, dout) == want
+    # the data gradient's K6 takes (dout, rhs [G, K, N]) by the same test
+    rhs = torch.zeros(3, k, n, dtype=tdt)
+    if off == 0 and m > 0:
+        assert rd.path(dout, rhs) == want
+
+
+def test_launch_counts_reset_by_path():
+    """``ops.reset_launch_counts`` zeroes K6's and K6w's counts by path,
+    the dgrad mode's key included."""
+    assert set(ragged_dot.launches_by_path) == {"tma", "tma_dgrad",
+                                                "simple"}
+    assert set(ragged_dot_wgrad.launches_by_path) == {"tma", "simple"}
+    ragged_dot_wgrad.launches_by_path["tma"] += 3
+    ragged_dot.launches_by_path["tma_dgrad"] += 2
+    ops.reset_launch_counts()
+    assert not any(ragged_dot_wgrad.launches_by_path.values())
+    assert not any(ragged_dot.launches_by_path.values())
 
 
 def test_only_the_inputs_that_need_a_gradient_get_one():
@@ -299,3 +432,163 @@ def test_moe_ragged_grads_on_cuda_match_cpu(cuda, arch):
         np.testing.assert_allclose(card[name].cpu().numpy(), g.numpy(),
                                    rtol=F32_TOL, atol=F32_TOL, err_msg=name)
     assert all(bool(card[w].abs().amax() > 0) for w in ("we1", "we2", "we3"))
+
+
+# K6w's TMA path at its edges: (M, K, N, G) and how the rows fall
+WGRAD_EDGES = {
+    "long_group": ((3600, 256, 192, 4), "long"),  # 3,500 rows: the ring wraps
+    "one_row_groups": ((300, 128, 136, 200), "ones"),  # 200 groups of 1 row
+    "boundaries": ((400, 200, 72, 10), "ragged"),   # inside k-steps and boxes
+    "tails": ((500, 200, 72, 9), "uniform"),        # K, N on 8, off 128
+    "g160": ((1000, 256, 192, 160), "uniform"),
+    "all_empty": ((300, 128, 256, 7), "zero"),
+    "past": ((700, 136, 264, 40), "past"),          # past the sum and M
+    "view": ((300, 64, 64, 5), "uniform"),          # lhs off 16 bytes
+}
+
+
+def _wgrad_edge(case, dtype, device, seed=45):
+    (m, k, n, g), kind = WGRAD_EDGES[case]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    sizes = torch.zeros(g, dtype=torch.int32)
+    if kind == "uniform":
+        e = torch.randint(0, g, (m,), generator=gen)
+        sizes = torch.bincount(e, minlength=g).to(torch.int32)
+    elif kind == "long":
+        sizes[1] = 3500
+    elif kind == "ones":
+        sizes[:] = 1
+    elif kind == "ragged":  # 3 + 17 + 29 + 1: inside one 64-row box
+        sizes[:] = torch.tensor([3, 17, 29, 1, 0, 70, 9, 64, 65, 13])
+    elif kind == "past":  # a size below 0; the sizes sum past M
+        sizes[:6] = torch.tensor([5, 37, 0, 100, 200, -3])
+        sizes[6:] = 50
+    tdt = DTYPES[dtype][1]
+    off = 1 if case == "view" else 0
+    buf = torch.randn(m * k + off, generator=gen).to(device, tdt)
+    lhs = buf[off:].view(m, k)
+    dout = torch.randn(m, n, generator=gen).to(device, tdt)
+    return lhs, dout, sizes.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(WGRAD_EDGES))
+def test_wgrad_edge_cases_on_cuda(cuda, case, dtype):
+    """K6w at its edges: the TMA path (the simple one for a view off 16
+    bytes) within ``_close`` of the plain version, twice the same bits,
+    exact zeros for empty groups, and in float32 the simple kernel's bits
+    on the same inputs."""
+    lhs, dout, sizes = _wgrad_edge(case, dtype, cuda)
+    g = sizes.shape[0]
+    want_path = "simple" if case == "view" else "tma"
+    assert rd.wgrad_path(lhs, dout) == want_path
+    before = dict(ragged_dot_wgrad.launches_by_path)
+    got = ragged_dot_wgrad(lhs, dout, sizes, g)
+    again = ragged_dot_wgrad(lhs, dout, sizes, g)
+    simple = rd._k6w(lhs, dout, sizes, g, "simple")
+    torch.cuda.synchronize()
+    after = ragged_dot_wgrad.launches_by_path
+    assert after[want_path] - before[want_path] == (3 if case == "view"
+                                                    else 2)
+    assert torch.equal(got, again)
+    assert not got[sizes.cpu() <= 0].any()
+    if dtype == "float32":
+        assert torch.equal(got, simple)
+    want = ragged_dot_wgrad_plain(lhs, dout, sizes, g)
+    _close(got.cpu(), want.cpu(), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ["smoke_up", "smoke_down", "g160",
+                                   "tails"])
+def test_dgrad_mode_matches_the_copy_on_cuda(cuda, shape, dtype):
+    """K6's dgrad mode (rhs read transposed in place) against K6 over a
+    transposed copy: bit for bit in float32 (one fmaf chain over the
+    reduction in order), within ``_close`` in bfloat16; counted under
+    ``"tma_dgrad"``."""
+    m, k, n, g = {**CARD_SHAPES, "g160": (1000, 256, 192, 160),
+                  "tails": (500, 200, 72, 9)}[shape]
+    lhs, rhs, sizes, dout = _card_case(m, k, n, g, dtype, cuda)
+    assert rd.path(dout, rhs) == "tma"
+    before = dict(ragged_dot.launches_by_path)
+    got = rd._k6(dout, rhs, sizes, trans=True)
+    want = rd._k6(dout, rhs.transpose(1, 2).contiguous(), sizes)
+    torch.cuda.synchronize()
+    now = ragged_dot.launches_by_path
+    assert (now["tma_dgrad"] - before["tma_dgrad"],
+            now["tma"] - before["tma"]) == (1, 1)
+    assert got.shape == lhs.shape
+    if dtype == "float32":
+        assert torch.equal(got, want)
+    else:
+        _close(got.cpu(), want.cpu(), dtype)
+    assert not got[int(sizes.sum()):].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_paths_on_cuda(cuda, dtype):
+    """On a TMA shape autograd's backward runs K6 in its dgrad mode and
+    K6w on its TMA path, with no transposed copy of rhs: the backward's
+    peak stays below its two gradients and half of rhs; on a shape off
+    the vector (the simple paths) K6 runs over the copy."""
+    lhs, rhs, sizes, dout = _card_case(1024, 256, 512, 16, dtype, cuda)
+    a, b = (t.detach().requires_grad_(True) for t in (lhs, rhs))
+    out = ragged_dot(a, b, sizes)
+    k6, k6w = (dict(f.launches_by_path) for f in (ragged_dot,
+                                                   ragged_dot_wgrad))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out.backward(dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = (lhs.numel() + rhs.numel()) * lhs.element_size()
+    assert peak < grads + rhs.numel() * rhs.element_size() // 2, peak
+    assert ragged_dot.launches_by_path["tma_dgrad"] == k6["tma_dgrad"] + 1
+    assert ragged_dot_wgrad.launches_by_path["tma"] == k6w["tma"] + 1
+    lhs, rhs, sizes, dout = _card_case(*CARD_SHAPES["odd"], dtype, cuda)
+    k6, k6w = (dict(f.launches_by_path) for f in (ragged_dot,
+                                                   ragged_dot_wgrad))
+    _port_grads(lhs, rhs, sizes, dout)
+    torch.cuda.synchronize()
+    assert ragged_dot.launches_by_path["simple"] == k6["simple"] + 2
+    assert ragged_dot.launches_by_path["tma_dgrad"] == k6["tma_dgrad"]
+    assert ragged_dot_wgrad.launches_by_path["simple"] == k6w["simple"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tma_launches_from_a_fresh_thread(cuda, dtype):
+    """K6, its dgrad mode and K6w launched from a thread whose only CUDA
+    work is theirs (as autograd's worker runs a backward; every output is
+    served from PyTorch's cache, so nothing else makes a context current
+    there): each encodes its tensor maps and gives the main thread's
+    bits."""
+    lhs, rhs, sizes, dout = _card_case(*CARD_SHAPES["smoke_up"], dtype, cuda)
+    g = sizes.shape[0]
+    calls = {"k6": lambda: rd._k6(lhs, rhs, sizes),
+             "dgrad": lambda: rd._k6(dout, rhs, sizes, trans=True),
+             "k6w": lambda: ragged_dot_wgrad(lhs, dout, sizes, g)}
+    want = {name: fn() for name, fn in calls.items()}
+    spare = [fn() for fn in calls.values()]  # blocks the thread reuses
+    torch.cuda.synchronize()
+    del spare
+    got = {}
+
+    def run():
+        try:
+            for name, fn in calls.items():
+                got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 — reported below
+            got["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and "error" not in got, got.get("error")
+    for name in calls:
+        assert torch.equal(got[name], want[name]), name
