@@ -246,19 +246,50 @@ Imports only the port (``src/repro_torch``) and runs:
                 optimizer's ms, peak memory, free disk and checkpoint
                 seconds; an nm=2 step within 5e-2 of the nm=1 step; the
                 loss falls on a repeated batch; (c) ``qwen3-moe-30b-a3b``
-                at full width and depth 2 with ragged dispatch on a
-                (2, 512) batch: every expert that took a token has a
-                nonzero gradient and every other one exactly zero; float32
-                gradients against ``dense_chunked`` where nothing drops
-                (the same routes, each leaf within 1e-4 of its largest
-                gradient); 3 trainer steps, each launching K6 and K6w (3 a
-                layer); (d) at smoke width in float32, 3 train steps of
-                ``deepseek-7b`` and of ``qwen3-moe-30b-a3b`` (ragged) on the
+                at full width and depth 2 with ragged dispatch through the
+                train launcher's ``train(...)``: 3 steps of (2, 512) corpus
+                batches, each launching K6 and K6w (3 a layer, on their
+                TMA paths), step ms and peaks, K1 and K2 (the corpus's
+                index) launched, one async checkpoint (about 22 GB, into a
+                temp dir) restored on the card bit for bit; then at the
+                trained parameters: every expert that took a token of a
+                (2, 512) batch has a nonzero gradient and every other one
+                exactly zero; float32 gradients against ``dense_chunked``
+                where nothing drops (the same routes, each leaf within 1e-4
+                of its largest gradient); (d) at smoke width in float32, 3
+                train steps of ``deepseek-7b`` and of ``qwen3-moe-30b-a3b``
+                (ragged) on the
                 card and on the CPU, params within 1e-4; the smoke
                 ``deepseek-7b``'s fail-at-12-and-resume on the card with and
                 without ``torch.use_deterministic_algorithms`` (the script
                 sets ``CUBLAS_WORKSPACE_CONFIG`` for it), both bit-equal.
                 ``run_train_path(torch)`` runs the phase alone.
+ 20. launchers — (a) ``python -m repro_torch.launch.serve --arch
+                deepseek-7b`` in a process of its own (the smoke config,
+                as the reference's command line), which must exit 0 with a
+                hit; ``serve(get_config("deepseek-7b"), requests=6,
+                prompt_len=32, new_tokens=16)`` in this process at full
+                width and depth: the hits (every request after the first
+                shares its half prompt) must give each request's cold
+                tokens on a fresh engine, K1 and K2 must launch; tokens/s
+                and peak memory; (b) ``python -m repro_torch.launch.train
+                --arch qwen3-moe-30b-a3b --steps 4 --batch 2 --seq 64`` in
+                a process of its own, which must exit 0 with a finite
+                loss; ``train(...)`` of ``qwen3-moe-30b-a3b`` at full
+                width in this process is phase 19c's; one full-width
+                ``rwkv6-1.6b`` step through ``train(...)`` on 1 x 1024
+                tokens: its step ms, its peak, and the peak of one loss and
+                backward at the trained parameters beside the optimizer's
+                state, above the parameters, m, v and gradients (the
+                blocks are rematerialized: one block's time loop at a
+                time keeps its states); (c) ``compressed_psum`` over a
+                one-rank NCCL group (a file store in a temp dir), bit-equal
+                to ``compress_roundtrip`` on the card and on the CPU; (d)
+                ``dryrun.run_cell`` of ``deepseek-7b train_4k`` and
+                ``qwen1-5-110b decode_32k`` on one pod (16 x 16) on the meta
+                device, each record's per-device argument bytes against the
+                card's memory, and ``roofline.table`` over them.
+                ``run_launch_path(torch)`` runs the phase alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -444,6 +475,16 @@ REC_CPU_MAX_LEN = 32        # 48 tokens into it: recurrentgemma's ring wraps
 REC_CPU_TOKENS = 48
 ED_ARCH = "whisper-small"   # forward and decode at full width (phase 18c)
 ED_TOKENS = 32
+# phase 20: the launchers, compressed_psum and the dry run
+LAUNCH_SERVE_ARCH = "deepseek-7b"  # served at full width and depth (20a)
+LAUNCH_SERVE = dict(requests=6, prompt_len=32, new_tokens=16)
+LAUNCH_CLI_TRAIN = ("--steps", "4", "--batch", "2", "--seq", "64")
+LAUNCH_RWKV_ARCH = "rwkv6-1-6b"  # one full-width training step (20b)
+LAUNCH_RWKV = dict(steps=1, batch=1, seq=1024)
+LAUNCH_PSUM_SHAPE = (4096, 1027)  # compressed_psum's input (20c)
+LAUNCH_DRYRUN_CELLS = (("deepseek-7b", "train_4k"),
+                       ("qwen1-5-110b", "decode_32k"))  # on one pod (20d)
+LAUNCH_CLI_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -4034,33 +4075,74 @@ def _worst_of_leaf_max(paths, got, want):
     return worst, where
 
 
+def _peak_since(torch, base: int) -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _train_in_tmp(torch, cfg, restore=True, **kw):
+    """``launch.train.train(cfg, **kw)`` into a temp checkpoint dir: (its
+    result, whether the checkpoint restored on the card equals the final
+    state bit for bit (None where ``restore`` is off), the run's peak
+    bytes above the start, the launches, the checkpoint's bytes). The dir
+    is removed after."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.init import flatten_tree
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    d = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    try:
+        ops.reset_launch_counts()
+        res = train(cfg, ckpt_dir=d, **kw)
+        launches = ops.launch_counts()
+        peak = _peak_since(torch, base)
+        step = ckpt.latest_step(d)
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*.npy"))
+        same = None
+        if restore:
+            state = (res["params"], res["opt_state"])
+            restored, _ = ckpt.restore(d, state)
+            same = step == kw["steps"] and all(
+                torch.equal(a, b) for (_, a), (_, b)
+                in zip(flatten_tree(state), flatten_tree(restored)))
+            del restored
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return res, same, peak, launches, ckpt_bytes
+
+
 def run_moe_trainer(torch, device="cuda"):
     """Phase 19c: ``MOE_TRAIN_ARCH`` at full width and
     ``MOE_TRAIN_LAYERS`` layers with ragged dispatch (K6 forward and data
-    gradient, K6w weight gradient), on a ``MOE_TRAIN_BATCH`` batch. A
-    gradient at bf16 compute on that batch (where every expert takes
-    tokens) and on its first ``MOE_SHORT_TOKENS`` tokens (where some take
-    none): every expert that took a token has a nonzero gradient and
-    every other expert exactly zero; one at float32
-    compute against ``dense_chunked`` at a capacity factor where nothing
-    drops (``_no_drops``): the same routes, and every leaf within
-    ``MOE_GRAD_TOL`` of its largest gradient; then ``MOE_TRAIN_STEPS``
-    trainer steps (bf16), each of which must launch K6 and K6w (3 K6w a
-    layer, each on its TMA path, and as many data gradients in K6's dgrad
-    mode, with no transposed copy of rhs), with each step's ms and peak
-    memory. Returns the report and the launches."""
+    gradient, K6w weight gradient) through the train launcher's
+    ``train(...)`` (phase 20b's in-process run): ``MOE_TRAIN_STEPS`` steps
+    on ``MOE_TRAIN_BATCH`` corpus batches (bf16) with one async checkpoint,
+    each step launching K6 and K6w (3 K6w a layer, each on its TMA path,
+    and as many data gradients in K6's dgrad mode, with no transposed copy
+    of rhs), with each step's ms and peak memory; finite losses, K1 and K2
+    (the corpus's index) launched, and the checkpoint restored on the card
+    bit for bit. Then, at the trained parameters, a gradient at bf16
+    compute on a ``MOE_TRAIN_BATCH`` batch of random tokens (where every
+    expert takes tokens) and on its first ``MOE_SHORT_TOKENS`` tokens
+    (where some take none): every expert that took a token has a nonzero
+    gradient and every other expert exactly zero; one at float32 compute
+    against ``dense_chunked`` at a capacity factor where nothing drops
+    (``_no_drops``): the same routes, and every leaf within
+    ``MOE_GRAD_TOL`` of its largest gradient. Returns the report and the
+    launches of the ``train(...)`` run."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ragged_dot import ragged_dot_wgrad
-    from repro_torch.models import init_params
-    from repro_torch.train import (
-        AdamWConfig,
-        grads_of,
-        init_opt_state,
-        make_train_step,
-    )
+    from repro_torch.train import grads_of
 
     full = get_config(MOE_TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
@@ -4071,21 +4153,76 @@ def run_moe_trainer(torch, device="cuda"):
         cfg.moe, dispatch="ragged"))
     layers = cfg.n_layers
     rep = {"arch": cfg.name, "n_layers": layers, "n_params": cfg.n_params(),
-           "batch": list(MOE_TRAIN_BATCH), "compute_dtype": cfg.compute_dtype,
-           "remat": cfg.remat}
+           "dispatch": "ragged", "batch": list(MOE_TRAIN_BATCH),
+           "steps": MOE_TRAIN_STEPS, "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "step_reports": []}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def wrap_step(step_fn):
+        def step(params, opt, batch):
+            before, paths_before = ops.launch_counts(), _k6_paths()
+            w_before = dict(ragged_dot_wgrad.launches_by_path)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = step_fn(params, opt, batch)
+            loss = float(out[2])
+            ms = (time.perf_counter() - t0) * 1e3
+            now = ops.launch_counts()
+            k6 = now["ragged_dot"] - before["ragged_dot"]
+            k6w = now["ragged_dot_wgrad"] - before["ragged_dot_wgrad"]
+            k6_paths = _k6_paths(paths_before)
+            k6w_paths = {p: c - w_before[p] for p, c
+                         in ragged_dot_wgrad.launches_by_path.items()}
+            rep["step_reports"].append({
+                "ms": ms, "loss": loss, "k6": k6, "k6w": k6w,
+                "k6_paths": k6_paths, "k6w_paths": k6w_paths,
+                "peak_bytes": torch.cuda.max_memory_allocated() - mem0})
+            require(math.isfinite(loss) and k6 > 0 and k6w == 3 * layers,
+                    f"train moe: a step launched K6 {k6} and K6w {k6w} "
+                    f"times (loss {loss})")
+            require(k6w_paths["tma"] == k6w and k6_paths["simple"] == 0
+                    and k6_paths["tma_dgrad"] == k6w,
+                    f"train moe: a step left the TMA paths or copied rhs: "
+                    f"K6 {k6_paths}, K6w {k6w_paths}")
+            return out
+        return step
+
+    res, same, peak, launches, ckpt_bytes = _train_in_tmp(
+        torch, cfg_r, steps=MOE_TRAIN_STEPS, batch=MOE_TRAIN_BATCH[0],
+        seq=MOE_TRAIN_BATCH[1], device=device, wrap_step=wrap_step)
+    steps_ms = [st["ms"] for st in rep["step_reports"]]
+    rep.update(losses=res["losses"], step_ms_p50=float(np.median(steps_ms)),
+               peak_bytes=peak, ckpt_bytes=ckpt_bytes,
+               restore_bit_equal=same,
+               launches={k: launches[k] for k in (
+                   "fused_locate", "bmat_rank", "ragged_dot",
+                   "ragged_dot_wgrad")})
+    rep["k6w_paths"] = {p: sum(st["k6w_paths"][p]
+                               for st in rep["step_reports"])
+                        for p in ragged_dot_wgrad.launches_by_path}
+    params = res["params"]
+    del res
+    gc.collect()
+    require(len(steps_ms) == MOE_TRAIN_STEPS
+            and all(math.isfinite(x) for x in rep["losses"]),
+            f"train moe: {len(steps_ms)} steps, losses {rep['losses']}")
+    require(same, "train moe: the checkpoint did not restore bit for bit")
+    require(all(c > 0 for c in rep["launches"].values()),
+            f"train moe: a kernel did not launch: {rep['launches']}")
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    ops.reset_launch_counts()
-    params = init_params(cfg, 0, device=device)
     toks = np.random.default_rng(5).integers(0, cfg.vocab, MOE_TRAIN_BATCH)
     batch = {"tokens": torch.as_tensor(toks, device=device)}
 
     def named(paths, grads):
         return {"/".join(p): g for p, g in zip(paths, grads)}
 
-    # the trainer's batch, where every expert takes tokens, and a short
-    # one, where some take none
+    # a batch where every expert takes tokens, and a short one, where some
+    # take none
     short = {"tokens": batch["tokens"][:1, :MOE_SHORT_TOKENS]}
     rep["experts_with_tokens"] = {}
     for name, b in (("batch", batch), ("short", short)):
@@ -4120,43 +4257,8 @@ def run_moe_trainer(torch, device="cuda"):
             and worst <= MOE_GRAD_TOL,
             f"train moe: ragged and dense float32 gradients differ: "
             f"{rep['ragged_vs_dense_f32']}")
-
-    opt = init_opt_state(params)
-    step_fn = make_train_step(cfg_r, AdamWConfig(**TRAIN_OCFG), nm=1)
-    rep["steps"] = []
-    for _ in range(MOE_TRAIN_STEPS):
-        before, paths_before = ops.launch_counts(), _k6_paths()
-        w_before = dict(ragged_dot_wgrad.launches_by_path)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        params, opt, loss, _ = step_fn(params, opt, batch)
-        loss = float(loss)
-        ms = (time.perf_counter() - t0) * 1e3
-        now = ops.launch_counts()
-        k6 = now["ragged_dot"] - before["ragged_dot"]
-        k6w = now["ragged_dot_wgrad"] - before["ragged_dot_wgrad"]
-        k6_paths = _k6_paths(paths_before)
-        k6w_paths = {p: c - w_before[p]
-                     for p, c in ragged_dot_wgrad.launches_by_path.items()}
-        rep["steps"].append({
-            "ms": ms, "loss": loss, "k6": k6, "k6w": k6w,
-            "k6_paths": k6_paths, "k6w_paths": k6w_paths,
-            "peak_bytes": torch.cuda.max_memory_allocated() - mem0})
-        require(math.isfinite(loss) and k6 > 0 and k6w == 3 * layers,
-                f"train moe: a step launched K6 {k6} and K6w {k6w} times "
-                f"(loss {loss})")
-        require(k6w_paths["tma"] == k6w and k6_paths["simple"] == 0
-                and k6_paths["tma_dgrad"] == k6w,
-                f"train moe: a step left the TMA paths or copied rhs: K6 "
-                f"{k6_paths}, K6w {k6w_paths}")
-    rep["k6w_paths"] = {p: sum(st["k6w_paths"][p] for st in rep["steps"])
-                        for p in ragged_dot_wgrad.launches_by_path}
-    launches = ops.launch_counts()
-    torch.cuda.synchronize()
-    rep["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    del params, opt, batch
+    rep["grad_checks_peak_bytes"] = _peak_since(torch, base)
+    del params, batch
     gc.collect()
     torch.cuda.empty_cache()
     rep["left_bytes"] = torch.cuda.memory_allocated() - base
@@ -4324,19 +4426,243 @@ def run_train_path(torch, device="cuda"):
     """Phase 19: 19a holds K6's backward to its plain versions and times
     K6w (``compare_k6w``; its launches are not counted); 19b trains the
     dense model at full width (``run_dense_trainer``); 19c the MoE model
-    through K6 and K6w (``run_moe_trainer``); 19d the card against the CPU
+    through the train launcher's ``train(...)``, K6 and K6w
+    (``run_moe_trainer``, the ``launch_train`` path); 19d the card against
+    the CPU
     and the bit-equal resume (``train_card_vs_cpu``). Returns (reports,
     launches by path, K6w's error and timing)."""
     err, timing = compare_k6w(torch, device)
     dense_rep, dense_launches = run_dense_trainer(torch, device)
     moe_rep, moe_launches = run_moe_trainer(torch, device)
-    timing["kernel_paths"] = {"train_moe": moe_rep["k6w_paths"]}
+    timing["kernel_paths"] = {"launch_train": moe_rep["k6w_paths"]}
     cpu_rep, cpu_launches = train_card_vs_cpu(torch, device)
     require(moe_launches["ragged_dot_wgrad"] > 0,
             "train: K6w did not launch on the MoE trainer's path")
     return ({"dense": dense_rep, "moe": moe_rep, "card_vs_cpu": cpu_rep},
-            {"train_dense": dense_launches, "train_moe": moe_launches,
+            {"train_dense": dense_launches, "launch_train": moe_launches,
              "train_card_vs_cpu": cpu_launches}, err, timing)
+
+
+# ---------------------------------------------------------------------------
+# the launchers, compressed_psum and the dry run (phase 20)
+# ---------------------------------------------------------------------------
+
+
+def _launcher(module: str, *args: str) -> str:
+    """``python -m <module> <args>`` from the checkout in a process of its
+    own (the kernels come from this run's build); its standard output, or
+    a failure with its exit code and the end of its output."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=LAUNCH_CLI_TIMEOUT_S)
+    require(out.returncode == 0,
+            f"launch: {module} exited {out.returncode}: "
+            f"{out.stdout[-1500:]} {out.stderr[-1500:]}")
+    print(f"launch: {module} {' '.join(args)} ok in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{' | '.join(out.stdout.strip().splitlines()[-2:])}", flush=True)
+    return out.stdout
+
+
+def launch_serve(torch):
+    """Phase 20a: the serve launcher's command line in a process of its own
+    (the smoke config, as the reference's), which must exit 0 with a hit;
+    then ``serve(get_config(LAUNCH_SERVE_ARCH), **LAUNCH_SERVE)`` at full
+    width and depth in this process: every request that hits must give
+    its cold tokens on a fresh engine of the same weights, the index must hit
+    (every request after the first shares the first's half prompt) and K1
+    and K2 must launch. Returns the report and the launches."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    out = _launcher("repro_torch.launch.serve", "--arch", LAUNCH_SERVE_ARCH)
+    hits = re.search(r"hits=(\d+) misses=(\d+)", out)
+    require(hits is not None and int(hits.group(1)) >= 1,
+            f"launch serve: the command line reported no hit: {out[-500:]}")
+    rep = {"cli": {"hits": int(hits.group(1)), "misses": int(hits.group(2))}}
+
+    cfg = get_config(LAUNCH_SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0)
+    ops.reset_launch_counts()
+    res = serve(cfg, params=params, **LAUNCH_SERVE)
+    launches = ops.launch_counts()
+    rep.update(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               seconds=res["seconds"], tokens=res["tokens"],
+               tokens_per_s=res["tokens_per_s"], hits=res["hits"],
+               misses=res["misses"], peak_bytes=_peak_since(torch, base),
+               k1=launches["fused_locate"], k2=launches["bmat_rank"])
+    max_len = LAUNCH_SERVE["prompt_len"] + LAUNCH_SERVE["new_tokens"] + 8
+    cold_same = []
+    for r in res["done"][1:]:  # the first is a miss: cold already
+        eng = ServeEngine(cfg, params, max_len=max_len, tuner=None)
+        [c] = eng.generate([Request(r.rid, r.prompt, len(r.out))])
+        eng.close()
+        cold_same.append(c.out == r.out)
+    rep["warm_equals_cold"] = cold_same
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(cold_same), f"launch serve: a request's tokens differ from "
+                            f"its cold run: {cold_same}")
+    require(rep["hits"] == LAUNCH_SERVE["requests"] - 1,
+            f"launch serve: {rep['hits']} hits, {rep['misses']} misses")
+    require(rep["k1"] > 0 and rep["k2"] > 0,
+            f"launch serve: K1 {rep['k1']} and K2 {rep['k2']} launches")
+    return rep, launches
+
+
+def launch_train(torch):
+    """Phase 20b: the train launcher's command line in a process of its
+    own (the smoke ``MOE_TRAIN_ARCH``, as the reference's), which must
+    exit 0 with a finite loss; ``train(...)`` at full width in this
+    process is phase 19c's (``run_moe_trainer``); then one full-width
+    ``LAUNCH_RWKV_ARCH`` step through ``train(...)`` (``LAUNCH_RWKV``),
+    its step time and peak memory, and the peak of one loss and backward
+    (``grads_of``) on the corpus's first batch at the trained parameters,
+    with the optimizer's state still allocated (the blocks are
+    rematerialized: only one block's time loop keeps its states for the
+    backward at a time). Returns the report and the RWKV run's
+    launches."""
+    import re
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import grads_of
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        out = _launcher("repro_torch.launch.train", "--arch",
+                        MOE_TRAIN_ARCH, *LAUNCH_CLI_TRAIN, "--ckpt-dir", d)
+    loss = re.search(r"final loss (\S+)", out)
+    require(loss is not None and math.isfinite(float(loss.group(1))),
+            f"launch train: no finite loss from the command line: "
+            f"{out[-500:]}")
+    rep = {"cli": {"final_loss": float(loss.group(1))}}
+
+    rcfg = get_config(LAUNCH_RWKV_ARCH)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res, _, peak, launches, _ = _train_in_tmp(torch, rcfg, restore=False,
+                                              **LAUNCH_RWKV)
+    batch = {"tokens": torch.as_tensor(res["corpus"].batch(0)["tokens"],
+                                       device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_b, _, grads = grads_of(res["params"], rcfg, batch)
+    grads_peak = _peak_since(torch, base)
+    n = rcfg.n_params()
+    rep["rwkv"] = {"arch": rcfg.name, "n_layers": rcfg.n_layers,
+                   "n_params": n, "remat": rcfg.remat, **LAUNCH_RWKV,
+                   "loss": res["losses"][-1], "loss_backward": float(loss_b),
+                   "step_ms": res["step_s"][-1] * 1e3, "peak_bytes": peak,
+                   # params, m and v in float32, and the gradients
+                   "state_bytes": 3 * 4 * n, "grads_bytes": 4 * n,
+                   "loss_backward_peak_bytes": grads_peak}
+    rep["rwkv"]["loss_backward_above_state_and_grads_bytes"] = (
+        grads_peak - 4 * 4 * n)
+    del res, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(math.isfinite(rep["rwkv"]["loss"])
+            and math.isfinite(rep["rwkv"]["loss_backward"]),
+            f"launch train: the RWKV step failed: {rep['rwkv']}")
+    return rep, launches
+
+
+def launch_psum(torch):
+    """Phase 20c: ``compressed_psum`` over a one-rank NCCL group (its store
+    a file in a temp dir): bit-equal to ``compress_roundtrip`` on the card
+    and to the CPU's ``compress_roundtrip``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.parallel.compression import (
+        compress_roundtrip,
+        compressed_psum,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(20).normal(
+        0, 3, LAUNCH_PSUM_SHAPE).astype(np.float32))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            got = compressed_psum(x.cuda())
+            torch.cuda.synchronize()
+            rep = {"backend": dist.get_backend(), "shape": list(x.shape),
+                   "equals_roundtrip_card": torch.equal(
+                       got, compress_roundtrip(x.cuda())),
+                   "equals_roundtrip_cpu": torch.equal(
+                       got.cpu(), compress_roundtrip(x))}
+        finally:
+            dist.destroy_process_group()
+    require(rep["equals_roundtrip_card"] and rep["equals_roundtrip_cpu"],
+            f"launch psum: not bit-equal: {rep}")
+    return rep
+
+
+def launch_dryrun(torch):
+    """Phase 20d: ``LAUNCH_DRYRUN_CELLS`` through ``dryrun.run_cell`` on
+    the meta device, on one pod (16 x 16), then ``roofline.table`` over
+    them; each record's per-device argument bytes beside the card's."""
+    import tempfile
+
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import run_cell
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    recs, rep = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        for arch, shape in LAUNCH_DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rec = run_cell(arch, shape, False, "tp_fsdp", "dense", d,
+                           "chip_smoke")
+            require(rec["status"] == "ok" and rec["flops_per_device"] > 0,
+                    f"launch dryrun: {arch} {shape}: "
+                    f"{rec.get('error', rec['status'])}")
+            args = rec["memory"]["argument_size_in_bytes"]
+            rep[f"{arch} {shape}"] = {
+                "seconds": time.perf_counter() - t0,
+                "flops_per_device": rec["flops_per_device"],
+                "argument_gib_per_device": args / 2 ** 30,
+                "card_gib": card_bytes / 2 ** 30,
+                "fits_card": args < card_bytes}
+            recs.append(rec)
+    print(roofline.table(recs), flush=True)
+    return rep
+
+
+def run_launch_path(torch):
+    """Phase 20: the serve and train launchers (20a, 20b), compressed_psum
+    over NCCL (20c) and the dry run with its roofline (20d). Returns the
+    report and the launches by path (``launch_serve``,
+    ``launch_train_rwkv``; phase 19c's ``train(...)`` run is
+    ``launch_train``)."""
+    t0 = time.perf_counter()
+    serve_rep, serve_launches = launch_serve(torch)
+    t1 = time.perf_counter()
+    train_rep, train_launches = launch_train(torch)
+    t2 = time.perf_counter()
+    rep = {"serve": serve_rep, "train": train_rep,
+           "psum": launch_psum(torch), "dryrun": launch_dryrun(torch)}
+    rep["seconds"] = {"serve": t1 - t0, "train": t2 - t1,
+                      "psum_dryrun": time.perf_counter() - t2,
+                      "all": time.perf_counter() - t0}
+    rep["card"] = card_line()
+    print("launch " + json.dumps(rep), flush=True)
+    return rep, {"launch_serve": serve_launches,
+                 "launch_train_rwkv": train_launches}
 
 
 def main() -> int:
@@ -4354,6 +4680,13 @@ def main() -> int:
     from repro_torch.kernels import build, ops
 
     t_start = time.perf_counter()
+    clock = [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase seconds: {name} {now - clock[0]:.1f}", flush=True)
+        clock[0] = now
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4388,6 +4721,7 @@ def main() -> int:
     _, range_launches = run_range_path(torch, index, live, "uplif range",
                                        tombstones=tomb)
     profile_waves(torch, index, runner, rate=0.5, waves=20)
+    phase_done("3-4 single index and its ranges")
 
     router, tuner, r_runner, inserted, r_phases, r_launches = run_router_path(
         torch, keys, ROUTER_WAVES)
@@ -4407,6 +4741,7 @@ def main() -> int:
     fanout_launches = fanout_path(torch)
     fc_launches = forecaster_path(torch, float(keys[0]), float(keys[-1]),
                                   k3_batch)
+    phase_done("5-7b router, ranges, waves, fanout, forecaster")
 
     rng = np.random.default_rng(1)
     errs = [
@@ -4440,6 +4775,7 @@ def main() -> int:
 
     card_vs_cpu(torch)
     router_card_vs_cpu(torch)
+    phase_done("8-11 kernels, kernel API, large index, card against CPU")
 
     # a main-path batch: one mixed wave's reads and insert keys
     batch = np.concatenate(runner.next_batch(0.5))
@@ -4454,6 +4790,7 @@ def main() -> int:
         k4_timing, variants={"tiled_rank_one_pass": k4_timing.pop("rank_pass")})
     timing["spline_lookup"] = dict(
         k5_timing["wikits"], variants={"fb_shift_36": k5_timing["fb"]})
+    phase_done("12 timing")
 
     # the front end, async maintenance, agent, baselines and pipeline; after
     # the timing, whose single index the agent retrains
@@ -4463,11 +4800,18 @@ def main() -> int:
     _, ag_launches = run_agent_path(torch, index, runner, live)
     _, b_launches = run_baselines(torch, loaded[::BASELINE_EVERY], unloaded)
     _, p_launches = run_pipeline(torch)
+    phase_done("13-15 gateway, async, agent, baselines, pipeline")
     _, lm_launches = run_lm_serve_path(torch, get_config(LM_ARCH))
+    phase_done("16 LM serving")
     _, moe_launches, k6_err, k6_timing = run_moe_path(torch)
+    phase_done("17 MoE")
     _, rec_launches = run_recurrent_path(torch)
     run_encdec_path(torch)
+    phase_done("18 recurrent, encoder-decoder")
     _, train_launches, k6w_err, k6w_timing = run_train_path(torch)
+    phase_done("19 training")
+    _, launch_launches = run_launch_path(torch)
+    phase_done("20 launchers")
     timing["ragged_dot"] = k6_timing
     timing["ragged_dot_wgrad"] = k6w_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
@@ -4490,7 +4834,7 @@ def main() -> int:
              "async_maintenance": a_launches, "agent": ag_launches,
              "baselines": b_launches, "pipeline": p_launches,
              "lm_serve": lm_launches, **moe_launches, **rec_launches,
-             **train_launches}
+             **train_launches, **launch_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

@@ -44,11 +44,16 @@ in ``ragged_dot.launches`` as the forward's do, K6w's in
 ``ragged_dot_wgrad.launches`` and ``ragged_dot_wgrad.launches_by_path``.
 On CPU tensors both directions run the plain versions; on CUDA tensors a
 kernel that fails to build or launch raises, and nothing gives way to the
-plain version.
+plain version. On meta tensors (the dry run) each product is a shape-only
+op, ``repro_torch::ragged_dot_shape`` and ``::ragged_dot_wgrad_shape``,
+with a FLOP formula for ``torch.utils.flop_counter``: 2 M K N for every
+product (the MoE layer's groups hold all M rows), so a counted program
+sees K6 and its two backward products as it sees a matrix product.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
@@ -128,10 +133,49 @@ def _check_operands(kernel: str, lhs, name: str, other, group_sizes):
             raise ValueError(f"{kernel}: {what} must be contiguous")
 
 
+@torch.library.custom_op("repro_torch::ragged_dot_shape", mutates_args=())
+def _k6_shape(lhs: torch.Tensor, rhs: torch.Tensor,
+              trans: bool) -> torch.Tensor:
+    """K6's output on meta tensors (shape and dtype only)."""
+    raise ValueError("ragged_dot_shape takes meta tensors only")
+
+
+@_k6_shape.register_fake
+def _(lhs, rhs, trans):
+    return lhs.new_empty((lhs.shape[0], rhs.shape[1] if trans
+                          else rhs.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.ragged_dot_shape)
+def _k6_flops(lhs_shape, rhs_shape, trans, *args, out_shape=None, **kw):
+    return 2 * lhs_shape[0] * lhs_shape[1] * out_shape[1]
+
+
+@torch.library.custom_op("repro_torch::ragged_dot_wgrad_shape",
+                         mutates_args=())
+def _k6w_shape(lhs: torch.Tensor, dout: torch.Tensor,
+               n_groups: int) -> torch.Tensor:
+    """K6w's output on meta tensors (shape and dtype only)."""
+    raise ValueError("ragged_dot_wgrad_shape takes meta tensors only")
+
+
+@_k6w_shape.register_fake
+def _(lhs, dout, n_groups):
+    return lhs.new_empty((n_groups, lhs.shape[1], dout.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.ragged_dot_wgrad_shape)
+def _k6w_flops(lhs_shape, dout_shape, n_groups, *args, out_shape=None,
+               **kw):
+    return 2 * lhs_shape[0] * lhs_shape[1] * dout_shape[1]
+
+
 def _k6(lhs, rhs, group_sizes, trans: bool = False):
-    """K6: the launch on CUDA tensors, the plain version on CPU ones.
-    ``trans``: ``rhs`` is [G, N, K] and is read transposed (``lhs @
-    rhs[g].T``), on the TMA path only."""
+    """K6: the launch on CUDA tensors, the plain version on CPU ones, the
+    shape-only op on meta ones. ``trans``: ``rhs`` is [G, N, K] and is
+    read transposed (``lhs @ rhs[g].T``), on the TMA path only."""
+    if lhs.device.type == "meta":
+        return _k6_shape(lhs, rhs, trans)
     if not _on_cuda(lhs, "ragged_dot"):
         return ragged_dot_plain(lhs, rhs.transpose(1, 2) if trans else rhs,
                                 group_sizes)
@@ -185,7 +229,9 @@ def _k6w(lhs, dout, group_sizes, n_groups: int, which: str | None = None):
     """K6w: the launch on CUDA tensors, the plain version on CPU ones.
     ``which``: the kernel, ``wgrad_path``'s choice by default; ``"simple"``
     runs the simple kernel whatever the shape, which holds the TMA path to
-    its float32 bits on the card."""
+    its float32 bits on the card. On meta tensors, the shape-only op."""
+    if lhs.device.type == "meta":
+        return _k6w_shape(lhs, dout, n_groups)
     if not _on_cuda(lhs, "ragged_dot_wgrad"):
         return ragged_dot_wgrad_plain(lhs, dout, group_sizes, n_groups)
     if lhs.dim() != 2 or dout.dim() != 2 or group_sizes.dim() != 1:
@@ -238,7 +284,8 @@ class _RaggedDot(torch.autograd.Function):
         dout = dout.contiguous()
         dlhs = drhs = None
         if ctx.needs_input_grad[0]:
-            if dout.device.type == "cpu" or path(dout, rhs) == "tma":
+            if (dout.device.type in ("cpu", "meta")
+                    or path(dout, rhs) == "tma"):
                 dlhs = _k6(dout, rhs, group_sizes, trans=True)
             else:
                 dlhs = _k6(dout, rhs.transpose(1, 2).contiguous(),

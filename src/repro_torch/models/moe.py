@@ -76,6 +76,10 @@ def moe_dense(x, p, cfg):
     cd = x.dtype
     t = b * s
     cap = max(int(m.capacity_factor * t * m.top_k / m.n_experts), 1)
+    # the shared experts first: under block remat the recompute then stops
+    # before the combine product, whose output its backward never reads
+    # (XLA drops it from the reference's recompute as dead code)
+    shared = _shared(x, p, cfg)
     top_p, top_i = _router(x, p, cfg, cd)
     xt = x.reshape(t, d)
     top_p = top_p.reshape(t, m.top_k)
@@ -99,7 +103,7 @@ def moe_dense(x, p, cfg):
     g = torch.bmm(xe, p["we3"].to(cd))
     ye = torch.bmm(F.silu(h) * g, p["we2"].to(cd))
     out = torch.einsum("ecd,tec->td", ye, combine).reshape(b, s, d)
-    return out + _shared(x, p, cfg)
+    return out + shared
 
 
 def moe_ragged(x, p, cfg):

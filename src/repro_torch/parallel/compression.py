@@ -1,5 +1,4 @@
-"""Gradient compression, the device-local half (port of
-``repro/parallel/compression.py``).
+"""Gradient compression (port of ``repro/parallel/compression.py``).
 
 int8 block quantization with error feedback:
   * each gradient tensor is quantized per 256-element block to int8 with a
@@ -11,8 +10,9 @@ int8 block quantization with error feedback:
 The arithmetic is the reference's, bit for bit: float32 block maxima over
 127, ``round`` half to even (as ``jnp.round``), the clip to [-127, 127],
 the scale rounded to float16 after the payload is computed with the
-float32 scale. ``compressed_psum`` (the all-reduce over a mesh axis) waits
-for the launch and parallel tooling.
+float32 scale. ``compressed_psum`` is the all-reduce: a
+``torch.distributed`` process group stands where the reference names a
+mesh axis (gloo on the CPU, NCCL on the card).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.init import flatten_tree, unflatten_tree
@@ -48,6 +49,21 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, shape,
                n: int) -> torch.Tensor:
     flat = (q.float() * scale.float()).reshape(-1)
     return flat[:n].reshape(shape)
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """all-reduce(x) over the process group ``group`` (the default group
+    when None) with an int8 payload, as the reference's over an axis name:
+    each rank quantizes its tensor and contributes the float32 product of
+    its int8 blocks and float16 scales, and the sum is taken in float32.
+    (The collective carries that dequantized product, as the reference's
+    ``psum`` does; on a wire that could ship the int8 and float16 pair,
+    ``wire_bytes_int8`` counts what it would carry.) Float32 result of x's
+    shape."""
+    q, scale = quantize(x)
+    contrib = (q.float() * scale.float()).reshape(-1)
+    dist.all_reduce(contrib, op=dist.ReduceOp.SUM, group=group)
+    return contrib[:x.numel()].reshape(x.shape)
 
 
 def compress_roundtrip(x: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ patterns under the npy descr ``'<V2'`` and ``"bfloat16"`` in the
 manifest; reading goes through the manifest's dtype. A checkpoint written
 by either package restores in the other (float32 and int32 leaves bit for
 bit; the JAX package cannot restore a bfloat16 leaf at all, ROADMAP §3).
-Leaves are stored whole; ``restore`` places them on one device.
+Leaves are stored whole; ``restore`` places them on one device, by the
+given shardings where the caller passes them.
 """
 from __future__ import annotations
 
@@ -137,11 +138,16 @@ def _read_leaf(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
-            device=None):
+            shardings: Optional[Any] = None, device=None):
     """Restore into the structure of ``tree_like`` (tensors, or meta
     tensors such as ``abstract_params``' and ``abstract_opt_state``'s),
     each leaf in its stored dtype on ``device`` (``cuda`` unless the caller
-    passes another). Returns (tree, manifest)."""
+    passes another). ``shardings`` (the same structure, the port's
+    ``parallel.partition.NamedSharding``s) is the reference's elastic
+    re-shard on load: each leaf is placed by its sharding, which on a mesh
+    of one device puts it on ``device``; a sharding over more devices
+    raises ``ValueError`` (the port runs on one card). Returns (tree,
+    manifest)."""
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -155,13 +161,19 @@ def restore(ckpt_dir: str, tree_like: Any, step: Optional[int] = None,
     missing = [n for n, _ in keyed if n not in dtypes]
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]}")
+    placers = [None] * len(keyed)
+    if shardings is not None:
+        placers = [sh for _, sh in _flatten(shardings)]
+        if len(placers) != len(keyed):
+            raise ValueError(f"{len(placers)} shardings for {len(keyed)} "
+                             f"leaves")
     out = []
-    for name, like in keyed:
+    for (name, like), sh in zip(keyed, placers):
         t = _read_leaf(os.path.join(d, name + ".npy"), dtypes[name])
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != expected "
                              f"{tuple(like.shape)}")
-        out.append(t.to(device))
+        out.append(t.to(device) if sh is None else sh.place(t, device))
     return rebuild_tree(tree_like, out), manifest
 
 

@@ -7,8 +7,9 @@ accumulate in ``accum_dtype`` (float32 by default). nm=1 is a plain step.
 
 The reference's ``constrain``, ``param_specs`` and ``constrain_in_loop``
 are sharding constraints for a device mesh; on one device they mean
-nothing, so the port drops them (the launch and parallel tooling may
-bring them back).
+nothing, so the port drops them (``parallel/partition.py`` computes the
+specs as data, and its ``make_constrain`` is the identity on one
+device).
 """
 from __future__ import annotations
 
@@ -51,24 +52,28 @@ def grads_of(params, cfg, batch):
 
 
 def make_train_step(cfg, ocfg: AdamWConfig, nm: int,
-                    accum_dtype: str = "float32"):
+                    accum_dtype: str = "float32", grads_fn=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, loss,
     metrics). With ``nm`` > 1, microbatch i is rows [i B / nm, (i + 1) B /
     nm) of every batch entry (the reference's reshape); the gradients add
     up in ``accum_dtype`` and are divided by nm in float32, and the loss is
-    the microbatches' mean."""
+    the microbatches' mean. ``grads_fn`` (``grads_of`` by default) takes
+    ``grads_of``'s arguments and returns what it returns (the dry run
+    counts a microbatch's gradient once and its repeats without running
+    them)."""
     acc_dt = getattr(torch, accum_dtype)
+    grads_fn = grads_fn or grads_of
 
     def train_step(params, opt_state, batch):
         if nm == 1:
-            loss, paths, grads = grads_of(params, cfg, batch)
+            loss, paths, grads = grads_fn(params, cfg, batch)
         else:
             b = next(iter(batch.values())).shape[0]
             acc, losses = None, []
             for i in range(nm):
                 mb = {k: v[i * b // nm:(i + 1) * b // nm]
                       for k, v in batch.items()}
-                l, paths, g = grads_of(params, cfg, mb)
+                l, paths, g = grads_fn(params, cfg, mb)
                 if acc is None:
                     acc = [torch.zeros(t.shape, dtype=acc_dt,
                                        device=t.device) for t in g]

@@ -181,7 +181,8 @@ def test_port_imports_no_jax():
     """``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything
     of the JAX package (checked in a fresh interpreter), the baselines, the
     agent, the pipeline, the gateway, the executor's pool, the LM substrate
-    (``models``, ``configs``) and ``ServeEngine`` included."""
+    (``models``, ``configs``), ``ServeEngine``, the launch tooling
+    (``launch.*``) and the partition specs included."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
@@ -190,6 +191,10 @@ def test_port_imports_no_jax():
         "import repro_torch.tuning.executor\n"
         "import repro_torch.models, repro_torch.configs\n"
         "from repro_torch.serve import ServeEngine\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+        "import repro_torch.launch.program_analysis, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.train\n"
+        "import repro_torch.launch.serve, repro_torch.parallel.partition\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
@@ -204,7 +209,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 58  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 77  # every module was imported
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
