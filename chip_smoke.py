@@ -290,6 +290,32 @@ Imports only the port (``src/repro_torch``) and runs:
                 device, each record's per-device argument bytes against the
                 card's memory, and ``roofline.table`` over them.
                 ``run_launch_path(torch)`` runs the phase alone.
+ 21. BMAT types — the paper's Fig. 4 (``benchmarks/bench_bmat_types.py``)
+                on the card: the standalone ``BMAT``, both tree types at
+                fanout 16 and n = 1,000 / 10,000 / 100,000 / 1,000,000 with
+                the bench's keys and queries (seed 0), merged in 65,536-key
+                chunks; 4,096 ranks timed (the median of 7 calls after two
+                warm-ups, the card synchronized around each); the state on
+                the card; ranks equal to searchsorted-left, also after
+                ``switch_type``; every merged key found with its value;
+                then a delete of 10% (and of absent keys), ``compact``,
+                ``extract(lo, hi)`` and ``remove_range`` against a numpy
+                oracle. Prints queries/s, modeled and device bytes,
+                height and the rbmat/b+mat ratios for each n.
+                ``run_bmat_types(torch)`` runs the phase alone.
+ 22. gateway passthrough — ``benchmarks/bench_gateway.py``'s two modes,
+                ``GatewayConfig(passthrough=True, max_pending=2048)`` and
+                ``GatewayConfig(max_batch=1024, max_delay_s=0.002)``, each
+                over a fresh 4-shard router of its 100,000 keys (values
+                2k+1, seed 0) with an ``on_complete`` hook: 64 closed-loop
+                clients for 5 s, 70% lookups and 30% inserts of fresh
+                keys. Every answer right; every request's op batch of one
+                in passthrough (a wave holds at most one lookup and one
+                insert); the hook called once for each completed request,
+                each already done; K1 and K2 launched; the loaded and
+                acknowledged keys read back. Prints requests/s, waves,
+                mean batch and the hook's p50/p99 latency for both.
+                ``run_gateway_passthrough(torch)`` runs the phase alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -485,6 +511,20 @@ LAUNCH_PSUM_SHAPE = (4096, 1027)  # compressed_psum's input (20c)
 LAUNCH_DRYRUN_CELLS = (("deepseek-7b", "train_4k"),
                        ("qwen1-5-110b", "decode_32k"))  # on one pod (20d)
 LAUNCH_CLI_TIMEOUT_S = 300
+# phase 21: the paper's Fig. 4 at benchmarks/bench_bmat_types.py's sizes
+BMAT_SIZES = (1_000, 10_000, 100_000, 1_000_000)
+BMAT_QUERIES = 4096
+BMAT_CHUNK = 65536          # keys per merge
+BMAT_FANOUT = 16
+BMAT_ITERS = 7              # timed rank calls, after two warm-up calls
+BMAT_SEED = 0
+BMAT_DELETE_FRAC = 0.1
+# phase 22: benchmarks/bench_gateway.py's index and its two modes
+PASS_KEYS = 100_000
+PASS_SEED = 0
+PASS_SECONDS = 5.0
+PASS_MODES = {"passthrough": dict(passthrough=True, max_pending=2048),
+              "batched": dict(max_batch=1024, max_delay_s=0.002)}
 
 
 class SmokeFailure(RuntimeError):
@@ -4665,6 +4705,303 @@ def run_launch_path(torch):
                  "launch_train_rwkv": train_launches}
 
 
+# ---------------------------------------------------------------------------
+# the standalone BMAT: the paper's Fig. 4 (phase 21)
+# ---------------------------------------------------------------------------
+
+
+def _rank_seconds(torch, b, queries) -> float:
+    """Median seconds of ``b.rank(queries)`` over ``BMAT_ITERS`` calls
+    after two warm-up calls (``benchmarks/common.time_batches``), the card
+    synchronized around each."""
+    for _ in range(2):
+        b.rank(queries)
+    ts = []
+    for _ in range(BMAT_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.rank(queries)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2]
+
+
+def _check_bmat_ops(b, keys, vals, queries, label):
+    """A delete of ``BMAT_DELETE_FRAC`` of the keys (and of absent keys),
+    ``compact``, then ``extract(lo, hi)`` and ``remove_range``, each held
+    to a numpy oracle; the ranks stay searchsorted-left throughout."""
+    n = len(keys)
+    crng = np.random.default_rng(BMAT_SEED + n)
+    dead = crng.random(n) < BMAT_DELETE_FRAC
+    absent = np.setdiff1d(crng.integers(0, 1 << 52, 256), keys)
+    hit = b.delete(np.concatenate([keys[dead], absent]))
+    require(hit[: dead.sum()].all() and not hit[dead.sum():].any(),
+            f"{label}: delete hit mask")
+    require(b.size == n and b.live_size == n - dead.sum(),
+            f"{label}: tombstones {b.size} / {b.live_size}")
+    require(np.array_equal(b.rank(queries),
+                           np.searchsorted(keys, queries, "left")),
+            f"{label}: ranks over tombstones")
+    b.compact()
+    live, live_v = keys[~dead], vals[~dead]
+    require(b.size == b.live_size == len(live), f"{label}: compact size")
+    f, v = b.lookup(live)
+    require(f.all() and np.array_equal(v, live_v), f"{label}: live lookups")
+    require(not b.lookup(keys[dead])[0].any(), f"{label}: a deleted key found")
+    lo, hi = int(keys[n // 4]), int(keys[n // 2])
+    inside = (live >= lo) & (live <= hi)
+    ek, ev = b.extract(lo, hi)
+    require(np.array_equal(ek, live[inside]) and np.array_equal(ev, live_v[inside]),
+            f"{label}: extract(lo, hi)")
+    b.remove_range(lo, hi)
+    ek, ev = b.extract()
+    require(np.array_equal(ek, live[~inside])
+            and np.array_equal(ev, live_v[~inside]), f"{label}: remove_range")
+    require(np.array_equal(b.rank(queries),
+                           np.searchsorted(live[~inside], queries, "left")),
+            f"{label}: ranks after remove_range")
+
+
+def run_bmat_types(torch, device="cuda"):
+    """Phase 21: ``benchmarks/bench_bmat_types.run`` on the card. For each
+    n of ``BMAT_SIZES`` and both tree types (fanout 16), the bench's keys
+    and queries from ``BMAT_SEED``, merged in ``BMAT_CHUNK``-key chunks;
+    4096 ranks timed; the state on the card; ranks equal to searchsorted
+    before and after ``switch_type``; every merged key found with its
+    value; then ``_check_bmat_ops``. Returns the report and the launch
+    counts of the phase (the standalone BMAT reaches no kernel, as the
+    reference's reaches no Pallas kernel)."""
+    from repro_torch.core.bmat import BMAT, BPMAT, RBMAT
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(BMAT_SEED)
+    rows = []
+    for n in BMAT_SIZES:
+        # the bench's draws, in its order
+        keys = np.unique(rng.integers(0, 1 << 52, int(n * 1.1)))[:n]
+        vals = keys + 1
+        stats = {}
+        for tname, tt in (("rbmat", RBMAT), ("b+mat", BPMAT)):
+            label = f"bmat {tname} n={n}"
+            b = BMAT(tt, fanout=BMAT_FANOUT, device=device)
+            t0 = time.perf_counter()
+            for i in range(0, n, BMAT_CHUNK):
+                b.merge(keys[i: i + BMAT_CHUNK], vals[i: i + BMAT_CHUNK])
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - t0
+            queries = rng.integers(0, 1 << 52, BMAT_QUERIES).astype(np.int64)
+            dt = _rank_seconds(torch, b, queries)
+            require(all(t.device.type == torch.device(device).type
+                        for t in b.state), f"{label}: state left the card")
+            want = np.searchsorted(keys, queries, "left")
+            require(np.array_equal(b.rank(queries), want),
+                    f"{label}: rank is not searchsorted-left")
+            b.switch_type()
+            require(np.array_equal(b.rank(queries), want),
+                    f"{label}: switch_type changed the ranks")
+            b.switch_type()
+            f, v = b.lookup(keys)
+            require(f.all() and np.array_equal(v, vals),
+                    f"{label}: a merged key was not found with its value")
+            stats[tname] = {
+                "qps": BMAT_QUERIES / dt, "rank_ms": dt * 1e3,
+                "mem": b.memory_bytes(modeled=True),
+                "device_bytes": b.memory_bytes(), "height": b.height,
+                "capacity": b.capacity, "merge_s": merge_s}
+            _check_bmat_ops(b, keys, vals, queries, label)
+            del b
+        rows.append({
+            "n": n, **{f"{t}_{k}": v for t, st in stats.items()
+                       for k, v in st.items()},
+            "rbmat/b+mat perf": stats["rbmat"]["qps"] / stats["b+mat"]["qps"],
+            "rbmat/b+mat mem": stats["rbmat"]["mem"] / stats["b+mat"]["mem"]})
+    counts = ops.launch_counts()
+    rep = {"path": "bmat_types", "fanout": BMAT_FANOUT,
+           "queries": BMAT_QUERIES, "rows": rows, "launches": counts,
+           "seconds": time.perf_counter() - t_phase, "card": card_line()}
+    print("bmat_types " + json.dumps(rep), flush=True)
+    return rep, counts
+
+
+# ---------------------------------------------------------------------------
+# the gateway's batch-size-1 baseline and its completion hook (phase 22)
+# ---------------------------------------------------------------------------
+
+
+def _passthrough_client(gw, tid, loaded, fresh, stop, out):
+    """One closed-loop client (phase 13's think time): 70% lookups (of the
+    loaded keys, and now and then of a key this client inserted), 30%
+    inserts of its own fresh keys. Every answer is checked; the futures of
+    completed requests are kept for the hook's check."""
+    from repro_torch.serve import RetryAfter
+
+    rng = np.random.default_rng(2000 + tid)
+    futs, errors, acked = [], [], []
+    n_fresh = n_rejected = 0
+    while not stop.is_set():
+        if rng.random() < 0.70 or n_fresh >= len(fresh):
+            if acked and rng.random() < 0.25:
+                k = acked[int(rng.integers(len(acked)))]
+            else:
+                k = int(loaded[rng.integers(len(loaded))])
+            kind, want = "lookup", (True, 2 * k + 1)
+        else:
+            k, kind, want = int(fresh[n_fresh]), "insert", True
+            n_fresh += 1
+        try:
+            fut = (gw.submit_lookup(k) if kind == "lookup"
+                   else gw.submit_insert(k, 2 * k + 1))
+        except RetryAfter as e:
+            n_rejected += 1
+            if kind == "insert":
+                n_fresh -= 1
+            time.sleep(e.retry_after_s)
+            continue
+        try:
+            res = fut.result(30.0)
+        except Exception as e:  # noqa: BLE001 — reported as a failure
+            errors.append(f"{kind} {k}: {e!r}")
+            break
+        if res != want:
+            errors.append(f"{kind} {k}: {res}, expected {want}")
+        futs.append(fut)
+        if kind == "insert":
+            acked.append(k)
+        if len(errors) >= 8:
+            break
+        time.sleep(rng.exponential(0.0005))
+    out[tid] = {"futs": futs, "errors": errors, "acked": acked,
+                "rejected": n_rejected}
+
+
+def _passthrough_keys():
+    """``benchmarks/bench_gateway._build_index``'s keys: ``PASS_KEYS`` of
+    2^44 from ``PASS_SEED``, sorted."""
+    rng = np.random.default_rng(PASS_SEED)
+    return np.sort(rng.choice(1 << 44, PASS_KEYS, replace=False)
+                   .astype(np.int64))
+
+
+def _passthrough_index(device):
+    """``benchmarks/bench_gateway._build_index``: values 2k+1, 4 shards,
+    the BMAT presized."""
+    from repro_torch.core import ShardedUpLIF, UpLIFConfig
+
+    keys = _passthrough_keys()
+    return ShardedUpLIF(keys, keys * 2 + 1,
+                        UpLIFConfig(batch_bucket=256, bmat_capacity=1 << 15),
+                        n_shards=N_SHARDS, device=device), keys
+
+
+def _serve_mode(torch, mode, cfg_kw, fresh, device):
+    """One of ``PASS_MODES`` over a fresh index: warmup, then
+    ``GATEWAY_CLIENTS`` clients for ``PASS_SECONDS`` with the completion
+    hook attached; every check of phase 22. Returns the mode's report and
+    its launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import GatewayConfig, RequestGateway
+
+    hooked = []  # (future, done when hooked, its latency then)
+
+    def hook(fut):
+        hooked.append((fut, fut.done(), time.perf_counter() - fut.t_submit))
+
+    index, loaded = _passthrough_index(device)
+    gw = RequestGateway(index, config=GatewayConfig(on_complete=hook,
+                                                    **cfg_kw))
+    out = {}
+    try:
+        gw.warmup()
+        torch.cuda.synchronize()
+        stop = threading.Event()
+        threads = [threading.Thread(
+            target=_passthrough_client, daemon=True,
+            args=(gw, i, loaded, fresh[i::GATEWAY_CLIENTS], stop, out))
+            for i in range(GATEWAY_CLIENTS)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(PASS_SECONDS)
+        stop.set()
+        for t in threads:
+            t.join(60.0)
+        served_s = time.perf_counter() - t0
+        require(not any(t.is_alive() for t in threads),
+                f"{mode}: a client did not finish")
+        gw.close()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        gw.close()
+    gst = gw.stats()
+    errors = [e for r in out.values() for e in r["errors"]]
+    require(len(out) == GATEWAY_CLIENTS, f"{mode}: a client reported nothing")
+    require(not errors, f"{mode}: wrong answers: {errors[:4]}")
+    require(gw.last_error is None, f"{mode}: a wave failed: {gw.last_error}")
+    futs = [f for r in out.values() for f in r["futs"]]
+    done = len(futs)
+    require(gst["ops"] == done, f"{mode}: {gst['ops']} ops served, "
+                                f"{done} completed")
+    # the hook: once per completed request, each already done; a rejected
+    # request has no future, so the hook can name none
+    require(len(hooked) == done
+            and {id(h[0]) for h in hooked} == {id(f) for f in futs},
+            f"{mode}: {len(hooked)} hook calls for {done} completed requests")
+    require(all(h[1] for h in hooked), f"{mode}: hooked before done")
+    batches = sum(sum(w.values()) for w in gst["pad_widths"].values())
+    if cfg_kw.get("passthrough"):
+        # batch size 1: each op kind's batch in a wave is one request (a
+        # wave holds at most one lookup and one insert)
+        require(gw.cfg.max_batch == 1 and batches == done
+                and gst["waves"] <= done <= 2 * gst["waves"],
+                f"{mode}: {gst['waves']} waves, {batches} op batches for "
+                f"{done} requests")
+    for name in ("fused_locate", "bmat_rank"):
+        require(counts[name] > 0, f"{mode}: {name} was not launched: {counts}")
+    acked = np.concatenate([np.asarray(r["acked"], dtype=np.int64)
+                            for r in out.values()])
+    probe = np.concatenate([loaded, acked])
+    f, v = index.lookup(probe)
+    require(f.all() and np.array_equal(v, 2 * probe + 1),
+            f"{mode}: a loaded or acknowledged key reads wrong")
+    require(index.size == len(probe), f"{mode}: size {index.size}")
+    lat = [h[2] for h in hooked]
+    rep = {"mode": mode, **cfg_kw,
+           "max_batch": gw.cfg.max_batch, "max_delay_s": gw.cfg.max_delay_s,
+           "served_s": served_s, "requests": done,
+           "requests_per_s": done / served_s, "waves": gst["waves"],
+           "op_batches": batches, "mean_batch": done / max(gst["waves"], 1),
+           "hook_calls": len(hooked), "hook": _pcts_ms(lat),
+           "rejected": sum(r["rejected"] for r in out.values()),
+           "gateway_rejected": gst["rejected"], "fresh_acked": len(acked),
+           "flush_triggers": gst["flush_triggers"], "launches": counts}
+    del index
+    return rep, counts
+
+
+def run_gateway_passthrough(torch, device="cuda"):
+    """Phase 22: ``GatewayConfig(passthrough=True, max_pending=2048)``
+    beside the batched ``GatewayConfig(max_batch=1024, max_delay_s=0.002)``
+    (``benchmarks/bench_gateway.py``'s two modes), each over a fresh
+    ``PASS_KEYS``-key router from the same seed with an ``on_complete``
+    hook, driven by the same closed-loop clients. Returns the report and
+    the launches by path (``gateway_passthrough``, ``gateway_batched``)."""
+    rng = np.random.default_rng(PASS_SEED + 1)
+    fresh = np.setdiff1d(rng.integers(0, 1 << 44, 800_000),
+                         _passthrough_keys())
+    fresh = rng.permutation(fresh)
+    rep, paths = {}, {}
+    for mode, cfg_kw in PASS_MODES.items():
+        rep[mode], paths[f"gateway_{mode}"] = _serve_mode(
+            torch, mode, cfg_kw, fresh, device)
+    rep["card"] = card_line()
+    print("gateway_passthrough " + json.dumps(rep), flush=True)
+    return rep, paths
+
+
 def main() -> int:
     # phase 19d's deterministic resume needs cuBLAS's fixed workspace
     # (the H100's default size), set before the first cuBLAS handle
@@ -4812,6 +5149,10 @@ def main() -> int:
     phase_done("19 training")
     _, launch_launches = run_launch_path(torch)
     phase_done("20 launchers")
+    _, bmat_launches = run_bmat_types(torch)
+    phase_done("21 BMAT types")
+    _, pass_launches = run_gateway_passthrough(torch)
+    phase_done("22 gateway passthrough")
     timing["ragged_dot"] = k6_timing
     timing["ragged_dot_wgrad"] = k6w_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
@@ -4834,7 +5175,8 @@ def main() -> int:
              "async_maintenance": a_launches, "agent": ag_launches,
              "baselines": b_launches, "pipeline": p_launches,
              "lm_serve": lm_launches, **moe_launches, **rec_launches,
-             **train_launches, **launch_launches}
+             **train_launches, **launch_launches,
+             "bmat_types": bmat_launches, **pass_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]

@@ -11,8 +11,10 @@ two traversals:
   * B+MAT — two-level fence tree: a bisect over the fence array (every
     ``fanout``-th key), then one bounded in-node bisect.
 
-With ``locate="fused"`` both kinds rank through the K2 kernel
-(``repro_torch/kernels/bmat_rank.py``), which walks the fences.
+On the index path (``fops``) with ``locate="fused"`` both kinds rank
+through the K2 kernel (``repro_torch/kernels/bmat_rank.py``), which walks
+the fences. The standalone ``BMAT`` (the paper's object, Fig. 4) ranks
+through the two traversals above, as the reference's does.
 Inserts are vectorized sorted merges of a batch.
 """
 from __future__ import annotations
@@ -133,8 +135,23 @@ def _merge(
     return out_keys, out_vals, size + n_new.to(size.dtype)
 
 
+def _bmat_probe(bmat: BMATState, ranks, queries):
+    """(present, alive, value, index) of a query inside the BMAT arrays at
+    its rank (the reference's ``_lookup``, with the index); KEY_MAX never
+    matches."""
+    cap = bmat.keys.shape[0]
+    idx = torch.clamp(ranks.to(torch.int64), max=cap - 1)
+    present = (bmat.keys[idx] == queries) & (queries != KEY_MAX)
+    val = bmat.vals[idx]
+    alive = present & (val != TOMBSTONE)
+    return present, alive, torch.where(alive, val, 0), idx
+
+
 class BMAT:
-    """Host wrapper holding the array state + static tuning knobs."""
+    """Host wrapper holding the array state + static tuning knobs.
+
+    The batch entry points take and return numpy arrays; the state lives
+    on the device given at construction."""
 
     def __init__(
         self,
@@ -193,19 +210,129 @@ class BMAT:
         nodes = max(self.size // self.fanout + 1, 1)
         return nodes * (self.fanout * 2 * 8 + 8) + self.capacity // self.fanout * 8
 
-    def extract(self):
-        """Live (keys, vals) as numpy."""
+    # -- queries -------------------------------------------------------------
+    # Boundary discipline: the public entry points take and return numpy
+    # arrays, as the reference's do; the state stays on its device and only
+    # the results come back. The reference pads every batch to a power-of-two
+    # width to bound its jit cache; the port runs eagerly and needs no
+    # padding (a padded row is a KEY_MAX query, whose result is dropped).
+    def _queries(self, queries) -> torch.Tensor:
+        q = np.ascontiguousarray(queries, dtype=np.int64)
+        return torch.as_tensor(q).to(self.state.keys.device)
+
+    def _ranks(self, q: torch.Tensor) -> torch.Tensor:
+        """Ranks of ``q`` through the current tree type's traversal."""
+        if self.tree_type == RBMAT:
+            return _rank_rbmat(self.state.keys, q, int(np.log2(self.capacity)))
+        nf = self.state.fences.shape[0]
+        return _rank_bpmat(
+            self.state.keys,
+            self.state.fences,
+            q,
+            self.fanout,
+            int(np.ceil(np.log2(nf + 1))),
+            int(np.ceil(np.log2(self.fanout + 1))),
+        )
+
+    def rank(self, queries: np.ndarray) -> np.ndarray:
+        """r(k): number of buffered entries with key < k (Phase-1 bias)."""
+        return self._ranks(self._queries(queries)).cpu().numpy()
+
+    def lookup(self, queries: np.ndarray):
+        """(found, value) per query; a tombstoned key is not found."""
+        q = self._queries(queries)
+        _, found, vals, _ = _bmat_probe(self.state, self._ranks(q), q)
+        return found.cpu().numpy(), vals.cpu().numpy()
+
+    def range_bounds(self, lo: np.ndarray, hi: np.ndarray):
+        """(rank(lo), rank(hi+1)) — the buffered slice for a range query."""
+        return self.rank(lo), self.rank(np.asarray(hi) + 1)
+
+    # -- updates -------------------------------------------------------------
+    def merge(self, new_keys: np.ndarray, new_vals: np.ndarray) -> None:
+        """Insert a batch. Keys already present get their value overwritten
+        in place; new keys are merged (sorted, vectorized)."""
+        new_keys = np.asarray(new_keys, dtype=np.int64)
+        new_vals = np.asarray(new_vals, dtype=np.int64)
+        if len(new_keys) == 0:
+            return
+        order = np.argsort(new_keys, kind="stable")
+        new_keys, new_vals = new_keys[order], new_vals[order]
+        # batch-internal dedup: keep the LAST occurrence (latest write wins)
+        is_last = np.concatenate([new_keys[1:] != new_keys[:-1], [True]])
+        new_keys, new_vals = new_keys[is_last], new_vals[is_last]
+        # existing keys -> value update in place
+        dev = self.state.keys.device
+        kt = torch.as_tensor(new_keys).to(dev)
+        vt = torch.as_tensor(new_vals).to(dev)
+        idx = torch.clamp(self._ranks(kt).to(torch.int64),
+                          max=self.capacity - 1)
+        present = self.state.keys[idx] == kt
+        if bool(present.any()):
+            self._set_vals(idx, present, vt)
+        fresh = ~present
+        n_new = int(fresh.sum())
+        if n_new == 0:
+            return
+        if self.size + n_new > self.capacity - 1:
+            self._grow(self.size + n_new)
+        keys, vals, size = _merge(
+            self.state.keys,
+            self.state.vals,
+            self.state.size,
+            kt[fresh],
+            vt[fresh],
+            torch.tensor(n_new, dtype=torch.int32, device=dev),
+        )
+        self.state = BMATState(
+            keys=keys, vals=vals, fences=_make_fences(keys, self.fanout),
+            size=size,
+        )
+
+    def delete(self, keys: np.ndarray) -> np.ndarray:
+        """Tombstone deletes for buffered keys; returns hit mask."""
+        q = self._queries(keys)
+        _, found, _, idx = _bmat_probe(self.state, self._ranks(q), q)
+        if bool(found.any()):
+            self._set_vals(idx, found, torch.full_like(q, TOMBSTONE))
+        return found.cpu().numpy()
+
+    def compact(self) -> None:
+        """Drop tombstones (host-side; used by the tuning actions)."""
+        self._rebuild(*self.extract())
+
+    def extract(self, lo: int | None = None, hi: int | None = None):
+        """Live (keys, vals) in [lo, hi] as numpy (for flush/retrain)."""
         n = self.size
         keys = self.state.keys[:n].cpu().numpy()
         vals = self.state.vals[:n].cpu().numpy()
         live = vals != TOMBSTONE
+        if lo is not None:
+            live &= keys >= lo
+        if hi is not None:
+            live &= keys <= hi
         return keys[live], vals[live]
+
+    def remove_range(self, lo: int, hi: int) -> None:
+        """Remove all live entries in [lo, hi] (after they were absorbed
+        in place by a subset-retrain tuning action)."""
+        keys, vals = self.extract()
+        keep = ~((keys >= lo) & (keys <= hi))
+        self._rebuild(keys[keep], vals[keep])
 
     def switch_type(self) -> None:
         """Tuning action A3: RBMAT <-> B+MAT (the state is layout-agnostic)."""
         self.tree_type = BPMAT if self.tree_type == RBMAT else RBMAT
 
     # -- internals -----------------------------------------------------------
+    def _set_vals(self, idx, mask, vals) -> None:
+        """``vals[idx[mask]] = vals[mask]`` as one masked scatter (the rows
+        outside the mask aim at a spare trailing row that is cut off)."""
+        from repro_torch.core.fops import _scatter_drop  # fops imports bmat
+
+        self.state = self.state._replace(
+            vals=_scatter_drop(self.state.vals, idx, vals, mask))
+
     def _grow(self, need: int) -> None:
         new_cap = max(pow2_at_least(4 * need + 2), _MIN_CAP)
         dev = self.state.keys.device

@@ -35,7 +35,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bmat import RBMAT, _make_fences, _merge, _rank_bpmat, _rank_rbmat
+from repro_torch.core.bmat import (
+    RBMAT,
+    _bmat_probe,
+    _make_fences,
+    _merge,
+    _rank_bpmat,
+    _rank_rbmat,
+)
 from repro_torch.core.radix_spline import _rs_predict_impl
 from repro_torch.core.state import (
     LOCATE_BINSEARCH,
@@ -161,16 +168,6 @@ def _bmat_rank(static: UpLIFStatic, bmat: BMATState, queries):
         max(1, int(np.ceil(np.log2(nf + 1)))),
         max(1, int(np.ceil(np.log2(static.fanout + 1)))),
     )
-
-
-def _bmat_probe(bmat: BMATState, ranks, queries):
-    """(present, alive, value, index) of a query inside the BMAT arrays."""
-    cap = bmat.keys.shape[0]
-    idx = torch.clamp(ranks.to(torch.int64), max=cap - 1)
-    present = (bmat.keys[idx] == queries) & (queries != KEY_MAX)
-    val = bmat.vals[idx]
-    alive = present & (val != TOMBSTONE)
-    return present, alive, torch.where(alive, val, 0), idx
 
 
 # ---------------------------------------------------------------------------

@@ -87,6 +87,21 @@ def fit_gmm(
     return _em(init, x, n_iters)
 
 
+def gmm_pdf(state: GMMState, x) -> torch.Tensor:
+    """Mixture density (float64) at each of ``x``."""
+    lp = _log_prob(state, torch.as_tensor(x, dtype=torch.float64))
+    return torch.exp(torch.logsumexp(lp, dim=1))
+
+
+def gmm_cdf(state: GMMState, x) -> torch.Tensor:
+    """Mixture CDF (float64) — the integral in Eq. 6 between two keys is a
+    CDF difference."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    z = (x[:, None] - state.means[None, :]) / (state.stds[None, :] * _SQRT2)
+    comp = 0.5 * (1.0 + torch.special.erf(z))
+    return (state.weights[None, :] * comp).sum(dim=1)
+
+
 def gmm_cdf_np(state: GMMState, x: np.ndarray) -> np.ndarray:
     """Host-side mixture CDF (numpy/scipy): the integral in Eq. 6 between
     two keys is a CDF difference."""

@@ -145,6 +145,14 @@ def _rs_predict_impl(
     return p0 + t * (p1 - p0)
 
 
+def rs_predict(
+    model: RadixSplineModel, static: RSStatic, keys: torch.Tensor
+) -> torch.Tensor:
+    """Predict float positions for a batch of int64 keys (error <= max_error
+    at every trained key; clamped extrapolation outside the key range)."""
+    return _rs_predict_impl(model, keys, static.n_search_iters)
+
+
 def rs_memory_bytes(model: RadixSplineModel) -> int:
     """Index-structure footprint of the base model (for §5.5 accounting)."""
     return sum(a.numel() * a.element_size() for a in model)

@@ -77,15 +77,32 @@ class UpLIFStatic(NamedTuple):
     locate: str         # LOCATE_SPLINE | LOCATE_BINSEARCH | LOCATE_FUSED
 
 
-def init_counters(device) -> Counters:
-    """Zero counts; the granularity starts at int64 max (no failed window)."""
+def init_counters(
+    device,
+    n_keys: int = 0,
+    n_bmat_live: int = 0,
+    n_inplace: int = 0,
+    n_overflow: int = 0,
+    min_granularity: int = _I64_MAX,
+) -> Counters:
+    """Counters on ``device`` holding the given starting counts; by default
+    zero counts and the granularity at int64 max (no failed window)."""
     def t(x):
         return torch.tensor(x, dtype=torch.int64, device=device)
 
     return Counters(
-        n_keys=t(0),
-        n_bmat_live=t(0),
-        n_inplace=t(0),
-        n_overflow=t(0),
-        min_granularity=t(_I64_MAX),
+        n_keys=t(n_keys),
+        n_bmat_live=t(n_bmat_live),
+        n_inplace=t(n_inplace),
+        n_overflow=t(n_overflow),
+        min_granularity=t(min_granularity),
+    )
+
+
+def state_memory_bytes(state: UpLIFState) -> int:
+    """Total live bytes of the device-resident state (counters excluded)."""
+    return sum(
+        a.numel() * a.element_size()
+        for arrs in (state.slots, state.model, state.bmat)
+        for a in arrs
     )

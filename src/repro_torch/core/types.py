@@ -72,3 +72,13 @@ class SlotsState(NamedTuple):
     keys: torch.Tensor  # int64[capacity]
     vals: torch.Tensor  # int64[capacity]
     occ: torch.Tensor   # bool[capacity]
+
+
+class OpStats(NamedTuple):
+    """Running counters used by the self-tuning agent (Section 4.1)."""
+
+    n_lookups: torch.Tensor          # int64
+    n_inplace_inserts: torch.Tensor  # int64
+    n_bmat_inserts: torch.Tensor     # int64
+    n_conflicts: torch.Tensor        # int64
+    min_granularity: torch.Tensor    # int64 — smallest split-segment seen

@@ -68,6 +68,11 @@ class UpLIFConfig:
             raise ValueError(f"unknown locate strategy {self.locate!r}")
 
 
+# The shell, the shard router and the gateway bucket widths with the one
+# quantization of core/shapes.py.
+bucket_width = shapes.bucket_width
+
+
 class UpLIF:
     """Batched updatable learned index (thin shell over fops)."""
 
@@ -241,10 +246,10 @@ class UpLIF:
 
     # -- helpers ---------------------------------------------------------------
     def _pad(self, arr: np.ndarray, fill) -> Tuple[torch.Tensor, int]:
-        """Pad to a bucketed width (``shapes.bucket_width``) and move to
+        """Pad to a bucketed width (``bucket_width``) and move to
         the index's device."""
         n = len(arr)
-        m = shapes.bucket_width(n, self.cfg.batch_bucket)
+        m = bucket_width(n, self.cfg.batch_bucket)
         out = arr
         if n != m:
             out = np.full(m, fill, dtype=arr.dtype)

@@ -8,3 +8,4 @@ for ``sm_90a`` at first use by ``build.py``) on CUDA tensors and run their
 plain versions on CPU tensors. ``ops`` holds the adapters the index calls
 and the kernel-level predict/search/rank API.
 """
+from repro_torch.kernels import ops, ref  # noqa: F401

@@ -15,7 +15,8 @@ Three disciplines:
 
 * **micro-batching** — a flush fires when any op queue reaches
   ``max_batch`` OR the oldest queued request ages past ``max_delay_s``,
-  whichever comes first.
+  whichever comes first. ``passthrough=True`` is the batch-size-1
+  baseline: ``max_batch`` 1 and no delay.
 * **shape quantization** — every flush pads to the power-of-two family
   (``core/shapes.padded_width``) in [``min_pad``, ``max_batch``], so a
   sweep of offered loads reaches only the widths ``warmup()`` primed. The
@@ -39,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -65,8 +66,17 @@ class GatewayConfig:
     shed_maintenance_at: float = 0.5   # backlog fraction → pressure 1
     shed_requests_at: float = 0.9      # backlog fraction → RetryAfter
     range_max_out: int = 256
+    # batch-size-1 baseline: flush every request immediately (a wave then
+    # holds at most one request of each op kind)
+    passthrough: bool = False
+    # per-completed-request hook, called on the flusher thread once every
+    # future of a successful wave holds its result (keep it tiny)
+    on_complete: Optional[Callable[[RequestFuture], None]] = None
 
     def __post_init__(self):
+        if self.passthrough:
+            self.max_batch = 1
+            self.max_delay_s = 0.0
         if self.min_pad < 1 or self.min_pad & (self.min_pad - 1):
             raise ValueError(f"min_pad must be a power of two, got {self.min_pad}")
 
@@ -270,6 +280,10 @@ class RequestGateway:
             )
         for i, fu in enumerate(futs["range"]):
             fu.set_result((res.range_keys[i], res.range_vals[i]))
+        if self.cfg.on_complete is not None:
+            for fs in futs.values():
+                for fu in fs:
+                    self.cfg.on_complete(fu)
         self.n_waves += 1
         self.n_ops += n
         if dt > 0 and n > 0:

@@ -10,7 +10,11 @@ max_batch], and after ``warmup()`` the kernel library is neither built nor
 loaded again. The waves the port's gateway dispatched, replayed through
 the JAX router's ``apply_wave``, give the same results and contents. The
 kernel library's first load is built once however many threads race to
-it. A ``gpu`` case runs the gateway over the overlapped tuner on CUDA.
+it. The passthrough baseline serves one request per wave (one of each op
+kind under concurrent clients), its waves replayed through the JAX
+router; the completion hook runs once per completed future, never for a
+failed wave or a rejected request. A ``gpu`` case runs the gateway over
+the overlapped tuner on CUDA.
 
 Every join, wait and result here has a timeout, and running into it fails
 the test.
@@ -481,6 +485,156 @@ def test_gateway_waves_replay_identically_through_jax():
     tf, tv = rec.lookup(probe)
     np.testing.assert_array_equal(jf, tf)
     np.testing.assert_array_equal(jv, tv)
+
+
+# ------------------------------------ the passthrough baseline and the hook
+
+
+def test_passthrough_serves_one_request_per_wave_as_jax_would():
+    """``passthrough=True`` is the batch-size-1 baseline: ``max_batch`` 1
+    and no delay. One client waiting on each answer gets one wave per
+    request; concurrent clients get at most one request of each op kind a
+    wave (the flusher drains every queue up to ``max_batch``). Every wave,
+    replayed through the JAX router, gives the same results and state."""
+    keys = make_keys(3000, 83)
+    cfg = dict(batch_bucket=256, bmat_capacity=1 << 13)
+    rec = _Recorder(ShardedUpLIF(keys, keys * 2 + 1, UpLIFConfig(**cfg),
+                                 n_shards=2, device="cpu"))
+    gcfg = GatewayConfig(passthrough=True, max_pending=2048)
+    assert (gcfg.max_batch, gcfg.max_delay_s) == (1, 0.0)
+    gw = RequestGateway(rec, config=gcfg)
+    errors = []
+
+    def client(tid, n):
+        rng = np.random.default_rng(300 + tid)
+        try:
+            for r in range(n):
+                k = int(keys[rng.integers(len(keys))])
+                p = rng.random()
+                if p < 0.5:
+                    found, v = gw.submit_lookup(k).result(WAIT_S)
+                    assert found, k
+                elif p < 0.8:
+                    fresh = (1 << 47) + tid * 1000 + r
+                    assert gw.submit_insert(fresh, r).result(WAIT_S)
+                    assert gw.submit_lookup(fresh).result(WAIT_S) == (True, r)
+                elif p < 0.9:
+                    gw.submit_delete((1 << 46) + r).result(WAIT_S)
+                else:
+                    gw.submit_range(k, k + (1 << 40)).result(WAIT_S)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    def ops_of(wave):  # requests of each op kind the wave holds
+        return [len(wave[f]) for f in ("insert_keys", "delete_keys",
+                                       "lookup_keys", "range_lo")
+                if wave[f] is not None and len(wave[f])]
+
+    try:
+        client(0, 30)
+        assert not errors, errors[:3]
+        served = gw.n_ops
+        assert gw.n_waves == served >= 30
+        assert all(ops_of(w) == [1] for w, _ in rec.waves)
+        ts = [threading.Thread(target=client, args=(i, 25), daemon=True)
+              for i in range(1, 7)]
+        for t in ts:
+            t.start()
+        _join(ts)
+    finally:
+        gw.close()
+    assert not errors, errors[:3]
+    assert gw.last_error is None
+    assert all(set(ops_of(w)) == {1} for w, _ in rec.waves)
+    assert gw.n_ops == sum(sum(ops_of(w)) for w, _ in rec.waves)
+    assert gw.n_waves == len(rec.waves) and gw.n_ops > served
+    widths = gw.stats()["pad_widths"]
+    assert all(list(w) == [256] for w in widths.values() if w), widths
+    jidx = JaxRouter(keys, keys * 2 + 1, JaxConfig(**cfg), n_shards=2)
+    for i, (wave, res) in enumerate(rec.waves):
+        _same_result(jidx.apply_wave(JaxMixedWave(**wave)), res, f"wave {i}")
+    assert_same_state(jidx.state, rec.state, "after the replay")
+
+
+class _FlakyIndex:
+    """Router wrapper whose waves fail while ``fail`` is set and wait for
+    ``release`` before they run."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.fail = False
+        self.release = threading.Event()
+        self.release.set()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def apply_wave(self, wave):
+        assert self.release.wait(WAIT_S), "the test never released the wave"
+        if self.fail:
+            raise RuntimeError("injected wave failure")
+        return self._inner.apply_wave(wave)
+
+
+def test_on_complete_runs_once_per_completed_future():
+    """The hook runs on the flusher thread once for each future of a wave
+    that succeeded, after every result of that wave is set, in the order
+    insert, delete, lookup, range; never for a failed wave's futures and
+    never for a request turned away with ``RetryAfter``."""
+    idx, keys = _mk_index()
+    flaky = _FlakyIndex(idx)
+    seen = []
+
+    def hook(fut):
+        seen.append((fut, fut.done(), time.perf_counter(),
+                     threading.current_thread().name, gw.n_waves))
+
+    gw = RequestGateway(flaky, config=GatewayConfig(
+        max_batch=8, max_delay_s=30.0, max_pending=16, on_complete=hook))
+    try:
+        # one size-flushed wave of every op kind, submitted out of order
+        wave = [gw.submit_range(int(keys[0]), int(keys[5])),
+                gw.submit_delete(int(keys[1])),
+                gw.submit_insert(1 << 45, 7), gw.submit_insert(1 << 46, 8)]
+        wave += [gw.submit_lookup(int(k)) for k in keys[10:18]]
+        for f in wave:
+            f.result(WAIT_S)
+        # a failed wave: its futures raise and the hook never sees them
+        flaky.fail = True
+        failed = [gw.submit_lookup(int(k)) for k in keys[20:28]]
+        for f in failed:
+            with pytest.raises(RuntimeError, match="injected"):
+                f.result(WAIT_S)
+        flaky.fail = False
+        # overload: the flusher holds one wave while the queue fills
+        flaky.release.clear()
+        held = [gw.submit_lookup(int(k)) for k in keys[30:38]]
+        queued, rejected = [], 0
+        for k in keys[40:80]:
+            try:
+                queued.append(gw.submit_lookup(int(k)))
+            except RetryAfter:
+                rejected += 1
+        assert rejected > 0 and queued
+        flaky.release.set()
+        gw.close()
+        for f in held + queued:
+            assert f.result(WAIT_S)[0]
+    finally:
+        flaky.release.set()
+        gw.close()
+    assert gw.last_error is not None and "injected" in gw.last_error
+    completed = wave + held + queued
+    hooked = [s[0] for s in seen]
+    assert len(hooked) == len(completed)
+    assert {id(f) for f in hooked} == {id(f) for f in completed}
+    assert all(done and name == "gateway-flusher"
+               for _, done, _, name, _ in seen)
+    # the first wave: in op order, each hook after the last result was set
+    first = [s for s in seen if s[4] == 0]
+    assert [s[0].op for s in first] == (["insert"] * 2 + ["delete"]
+                                        + ["lookup"] * 8 + ["range"])
+    assert min(s[2] for s in first) >= max(f.t_done for f in wave)
 
 
 # ------------------------------------------- the kernel library's first load
