@@ -1,0 +1,7 @@
+"""K2 (the BMAT rank): its launch's bytes over 3.35 TB/s, over its device
+time per launch, in %."""
+from perfharness.roofline import share
+
+
+def read(run):
+    return share(run, "k2")
