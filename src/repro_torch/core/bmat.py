@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.shapes import pow2_at_least
 from repro_torch.core.types import BMATState, KEY_MAX, TOMBSTONE
 
@@ -184,6 +185,7 @@ class BMAT:
 
     @property
     def size(self) -> int:
+        tracing.count("host_syncs")      # a read of a device scalar
         return int(self.state.size)
 
     @property

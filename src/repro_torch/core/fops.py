@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.bmat import (
     RBMAT,
     _bmat_probe,
@@ -178,14 +179,15 @@ def _bmat_rank(static: UpLIFStatic, bmat: BMATState, queries):
 def lookup(state: UpLIFState, queries, *, static: UpLIFStatic):
     """Batched point lookup -> (found bool[n], values int64[n]). The state
     is read-only."""
-    j, _ = _locate(static, state.slots.keys, state.model, queries)
-    _, alive, vals, _ = _probe(
-        state.slots.keys, state.slots.vals, state.slots.occ, j, queries
-    )
-    ranks = _bmat_rank(static, state.bmat, queries)
-    _, b_alive, b_vals, _ = _bmat_probe(state.bmat, ranks, queries)
-    b_alive = b_alive & ~alive
-    return alive | b_alive, torch.where(b_alive, b_vals, vals)
+    with tracing.span("fops.lookup"):
+        j, _ = _locate(static, state.slots.keys, state.model, queries)
+        _, alive, vals, _ = _probe(
+            state.slots.keys, state.slots.vals, state.slots.occ, j, queries
+        )
+        ranks = _bmat_rank(static, state.bmat, queries)
+        _, b_alive, b_vals, _ = _bmat_probe(state.bmat, ranks, queries)
+        b_alive = b_alive & ~alive
+        return alive | b_alive, torch.where(b_alive, b_vals, vals)
 
 
 # ---------------------------------------------------------------------------
@@ -339,70 +341,72 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
     if cap % W:
         raise ValueError("slot capacity must be W-aligned (nullifier align)")
     nw = cap // W
-    # the insert's own slot copies, each with one spare W-row at the end
-    sk_buf, sv_buf, so_buf = (
-        torch.cat([a, a[-W:]]) for a in state.slots
-    )
-    sk, sv, so = sk_buf[:cap], sv_buf[:cap], so_buf[:cap]
-    bmat = state.bmat
-    c = state.counters
-
-    pending = (keys != KEY_MAX) & ~_dedup_last_wins(keys)
-    n_keys, n_bmat_live = c.n_keys, c.n_bmat_live
-    n_inplace, min_gran = c.n_inplace, c.min_granularity
-
-    for rnd in range(max(1, static.insert_rounds)):
-        qk = torch.where(pending, keys, KEY_MAX)
-        j, icap = _locate(static, sk, state.model, qk)
-        if rnd == 0:
-            # upsert keys already in the slot array (revives tombstones)
-            hit, alive, _, jj = _probe(sk, sv, so, j, qk)
-            n_keys = n_keys + (hit & ~alive).sum()
-            sv_buf[torch.where(hit, jj, cap)] = vals
-            pending = pending & ~hit
-            if check_bmat:
-                # keys live in the BMAT -> value update there
-                ranks = _bmat_rank(static, bmat, qk)
-                _, b_alive, _, bidx = _bmat_probe(bmat, ranks, qk)
-                upd = b_alive & pending
-                bmat = bmat._replace(
-                    vals=_scatter_drop(bmat.vals, bidx, vals, upd))
-                pending = pending & ~upd
-            qk = torch.where(pending, keys, KEY_MAX)
-            j = torch.where(pending, j, cap - 1)
-
-        # grid-segment accept; clamp to the locate span so a boundary the
-        # bounded search could not prove lands in the BMAT, never outside
-        # the searched rows
-        ins_slot = torch.clamp(torch.minimum(j + 1, icap), 0, cap - 1)
-        bucket = torch.where(pending, ins_slot // W, nw + 1)
-        order = torch.argsort(bucket, stable=True)  # ties keep key order
-        qs = qk[order]
-        vs = vals[order]
-        bs = bucket[order]
-        pend_s = pending[order]
-        first = torch.ones_like(pend_s)
-        first[1:] = bs[1:] != bs[:-1]
-        accept = pend_s & first
-        starts = torch.clamp(bs * W, 0, cap - W)
-        can, failed_span = _inplace_window_insert(
-            sk_buf, sv_buf, so_buf, cap, qs, vs, starts, accept, pend_s,
-            W, static.movement_k,
+    with tracing.span("fops.insert.place"):
+        # the insert's own slot copies, each with one spare W-row at the end
+        sk_buf, sv_buf, so_buf = (
+            torch.cat([a, a[-W:]]) for a in state.slots
         )
-        ok = can & pend_s
-        n_ok = ok.sum()
-        n_inplace = n_inplace + n_ok
-        n_keys = n_keys + n_ok
-        min_gran = torch.minimum(min_gran, failed_span.min())
-        placed = torch.empty_like(ok)
-        placed[order] = ok
-        pending = pending & ~placed
+        sk, sv, so = sk_buf[:cap], sv_buf[:cap], so_buf[:cap]
+        bmat = state.bmat
+        c = state.counters
+
+        pending = (keys != KEY_MAX) & ~_dedup_last_wins(keys)
+        n_keys, n_bmat_live = c.n_keys, c.n_bmat_live
+        n_inplace, min_gran = c.n_inplace, c.min_granularity
+
+        for rnd in range(max(1, static.insert_rounds)):
+            qk = torch.where(pending, keys, KEY_MAX)
+            j, icap = _locate(static, sk, state.model, qk)
+            if rnd == 0:
+                # upsert keys already in the slot array (revives tombstones)
+                hit, alive, _, jj = _probe(sk, sv, so, j, qk)
+                n_keys = n_keys + (hit & ~alive).sum()
+                sv_buf[torch.where(hit, jj, cap)] = vals
+                pending = pending & ~hit
+                if check_bmat:
+                    # keys live in the BMAT -> value update there
+                    ranks = _bmat_rank(static, bmat, qk)
+                    _, b_alive, _, bidx = _bmat_probe(bmat, ranks, qk)
+                    upd = b_alive & pending
+                    bmat = bmat._replace(
+                        vals=_scatter_drop(bmat.vals, bidx, vals, upd))
+                    pending = pending & ~upd
+                qk = torch.where(pending, keys, KEY_MAX)
+                j = torch.where(pending, j, cap - 1)
+
+            # grid-segment accept; clamp to the locate span so a boundary the
+            # bounded search could not prove lands in the BMAT, never outside
+            # the searched rows
+            ins_slot = torch.clamp(torch.minimum(j + 1, icap), 0, cap - 1)
+            bucket = torch.where(pending, ins_slot // W, nw + 1)
+            order = torch.argsort(bucket, stable=True)  # ties keep key order
+            qs = qk[order]
+            vs = vals[order]
+            bs = bucket[order]
+            pend_s = pending[order]
+            first = torch.ones_like(pend_s)
+            first[1:] = bs[1:] != bs[:-1]
+            accept = pend_s & first
+            starts = torch.clamp(bs * W, 0, cap - W)
+            can, failed_span = _inplace_window_insert(
+                sk_buf, sv_buf, so_buf, cap, qs, vs, starts, accept, pend_s,
+                W, static.movement_k,
+            )
+            ok = can & pend_s
+            n_ok = ok.sum()
+            n_inplace = n_inplace + n_ok
+            n_keys = n_keys + n_ok
+            min_gran = torch.minimum(min_gran, failed_span.min())
+            placed = torch.empty_like(ok)
+            placed[order] = ok
+            pending = pending & ~placed
 
     n_over = torch.zeros((), dtype=torch.int64, device=keys.device)
     if merge_overflow:
-        bmat, n_bmat_live, n_over = _merge_pending(
-            static, bmat, keys, vals, pending, n_bmat_live
-        )
+        with tracing.span("fops.insert.merge"):
+            bmat, n_bmat_live, n_over = _merge_pending(
+                static, bmat, keys, vals, pending, n_bmat_live
+            )
     counters = Counters(
         n_keys=n_keys,
         n_bmat_live=n_bmat_live,

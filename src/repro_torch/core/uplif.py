@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import fops, shapes
 from repro_torch.core.bmat import BMAT, BPMAT
 from repro_torch.core.gmm import fit_gmm, gmm_memory_bytes, init_gmm_uniform
@@ -248,28 +249,35 @@ class UpLIF:
     def _pad(self, arr: np.ndarray, fill) -> Tuple[torch.Tensor, int]:
         """Pad to a bucketed width (``bucket_width``) and move to
         the index's device."""
-        n = len(arr)
-        m = bucket_width(n, self.cfg.batch_bucket)
-        out = arr
-        if n != m:
-            out = np.full(m, fill, dtype=arr.dtype)
-            out[:n] = arr
-        return torch.tensor(out, device=self.device), n
+        with tracing.span("uplif.h2d"):
+            n = len(arr)
+            m = bucket_width(n, self.cfg.batch_bucket)
+            out = arr
+            if n != m:
+                out = np.full(m, fill, dtype=arr.dtype)
+                out[:n] = arr
+            tracing.count("host_syncs")      # a copy from pageable memory
+            return torch.tensor(out, device=self.device), n
 
     def _ensure_bmat_capacity(self, incoming: int):
         """Merges cannot grow arrays: presize for the worst case (every
         incoming key overflows) before the insert."""
-        if self.bmat.size + incoming > self.bmat.capacity - 1:
-            self.bmat._grow(self.bmat.size + incoming)
+        with tracing.span("bmat.reserve"):
+            need = self.bmat.size + incoming
+            if need > self.bmat.capacity - 1:
+                self.bmat._grow(need)
 
     # -- queries ---------------------------------------------------------------
     def lookup(self, queries: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Batched point lookup -> (found bool[n], values int64[n])."""
-        queries = np.asarray(queries, dtype=np.int64)
-        q, n = self._pad(queries, KEY_MAX)
-        alive, vals = fops.lookup(self.fstate, q, static=self.fstatic())
-        self.n_lookups += n
-        return alive.cpu().numpy()[:n], vals.cpu().numpy()[:n]
+        with tracing.span("uplif.lookup"):
+            queries = np.asarray(queries, dtype=np.int64)
+            q, n = self._pad(queries, KEY_MAX)
+            alive, vals = fops.lookup(self.fstate, q, static=self.fstatic())
+            self.n_lookups += n
+            with tracing.span("uplif.d2h"):
+                tracing.count("host_syncs", 2)
+                return alive.cpu().numpy()[:n], vals.cpu().numpy()[:n]
 
     def adjusted_predict(self, queries: np.ndarray) -> np.ndarray:
         """Paper Eq. 1 / Module 3: the logical position M'(k) = live
@@ -308,21 +316,27 @@ class UpLIF:
     # -- updates ---------------------------------------------------------------
     def insert(self, keys: np.ndarray, vals: Optional[np.ndarray] = None):
         """Batched upsert. Returns the count that went to the BMAT."""
-        keys = np.asarray(keys, dtype=np.int64)
-        if vals is None:
-            vals = keys.copy()
-        vals = np.asarray(vals, dtype=np.int64)
-        if keys.shape != vals.shape:
-            raise ValueError("keys and vals must have the same shape")
-        if len(keys) == 0:
-            return 0
-        self._observe_updates(keys)
-        q, _ = self._pad(keys, KEY_MAX)
-        v, _ = self._pad(vals, 0)
-        self._ensure_bmat_capacity(int(q.shape[0]))
-        state, res = fops.insert(self.fstate, q, v, static=self.fstatic())
-        self._adopt(state)
-        return int(res.n_overflow)
+        with tracing.span("uplif.insert"):
+            keys = np.asarray(keys, dtype=np.int64)
+            if vals is None:
+                vals = keys.copy()
+            vals = np.asarray(vals, dtype=np.int64)
+            if keys.shape != vals.shape:
+                raise ValueError("keys and vals must have the same shape")
+            if len(keys) == 0:
+                return 0
+            tracing.count("insert.keys", len(keys))
+            self._observe_updates(keys)
+            q, _ = self._pad(keys, KEY_MAX)
+            v, _ = self._pad(vals, 0)
+            self._ensure_bmat_capacity(int(q.shape[0]))
+            state, res = fops.insert(self.fstate, q, v, static=self.fstatic())
+            self._adopt(state)
+            with tracing.span("uplif.d2h"):
+                tracing.count("host_syncs")
+                n_over = int(res.n_overflow)
+            tracing.count("insert.overflow", n_over)
+            return n_over
 
     def delete(self, keys: np.ndarray) -> np.ndarray:
         """Batched delete (tombstones). Returns hits."""
@@ -334,11 +348,14 @@ class UpLIF:
 
     # -- D_update estimation (Phase 2) ----------------------------------------
     def _observe_updates(self, keys: np.ndarray):
-        cap = self.cfg.reservoir
-        take = keys if len(keys) <= cap else self._rng.choice(keys, cap, replace=False)
-        self._reservoir = np.concatenate([self._reservoir, take])
-        if len(self._reservoir) > cap:
-            self._reservoir = self._rng.choice(self._reservoir, cap, replace=False)
+        with tracing.span("uplif.reservoir"):
+            cap = self.cfg.reservoir
+            take = (keys if len(keys) <= cap
+                    else self._rng.choice(keys, cap, replace=False))
+            self._reservoir = np.concatenate([self._reservoir, take])
+            if len(self._reservoir) > cap:
+                self._reservoir = self._rng.choice(self._reservoir, cap,
+                                                   replace=False)
 
     def refreshed_gmm(self) -> GMMState:
         """D_update refit from the reservoir (the prior until 64 samples)."""
