@@ -316,6 +316,15 @@ Imports only the port (``src/repro_torch``) and runs:
                 acknowledged keys read back. Prints requests/s, waves,
                 mean batch and the hook's p50/p99 latency for both.
                 ``run_gateway_passthrough(torch)`` runs the phase alone.
+ 23. window insert — K7 at the read_heavy cell's shape: a slot view of
+                16M keys' capacity (2.67 slots a key, 37.5% occupied, W 64)
+                on the card, 410 fresh keys in a batch of 4096 and of 512;
+                three rounds of the kernel pair and of its plain version
+                on copies of the view leave the same bytes; then the pair's
+                device ms per call and per launch, the wrapper's call ms,
+                the plain version's device and call ms, each call on a
+                fresh batch. ``run_window_insert(torch)`` runs the phase
+                alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -381,6 +390,20 @@ K2_REPLACES = "src/repro/kernels/bmat_rank.py:70"
 K3_REPLACES = "src/repro/kernels/gmm_estep.py:28"
 K4_REPLACES = "src/repro/kernels/tile_search.py:33"
 K5_REPLACES = "src/repro/kernels/spline_lookup.py:74"
+K7_SOURCE = "src/repro_torch/kernels/csrc/window_insert.cu"
+# not a pallas_call: the JAX package's jnp insert round (grid-segment
+# accept and _inplace_window_insert)
+K7_REPLACES = "src/repro/core/fops.py:240"
+K7_KEYS = 16_000_000        # the read_heavy cell's loaded keys
+K7_SLOTS_PER_KEY = 2.67     # a wikits bulk load's slots a key at W 64
+K7_OCCUPANCY = 0.375        # its occupied share of the slots
+K7_WINDOW = 64
+K7_MOVEMENT_K = 6
+K7_PENDING = 410            # a read_heavy wave's inserts (10% of 4096)
+K7_WIDTHS = (4096, 512)     # the wave's width; the insert's padded width
+K7_ITERS = 100
+K7_PLAIN_ITERS = 10
+K7_SEED = 23
 RANGE_BATCHES = 20          # range_query_batch calls per range phase
 RANGE_BATCH = 1024          # ranges per call (benchmarks/bench_range.py)
 RANGE_MAX_OUT = 512
@@ -5002,6 +5025,165 @@ def run_gateway_passthrough(torch, device="cuda"):
     return rep, paths
 
 
+# ---------------------------------------------------------------------------
+# K7, the window insert, at the read-heavy cell's shape (phase 23)
+# ---------------------------------------------------------------------------
+
+
+def _k7_view(torch, cap: int, seed: int):
+    """A slot view of ``cap`` slots with its scratch W-row on the card,
+    occupied as a wikits bulk load leaves one (``K7_OCCUPANCY``), the keys
+    increasing by gaps of 2 to 2^20 over the occupied slots, every empty
+    slot filled forward (KEY_MAX in the tail). Returns (keys, vals, occ,
+    the occupied keys)."""
+    from repro_torch.core.types import KEY_MAX
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    occ = torch.rand(cap, generator=g, device="cuda") < K7_OCCUPANCY
+    gaps = torch.randint(2, 1 << 20, (cap,), generator=g, device="cuda")
+    live = torch.cumsum(torch.where(occ, gaps, 0), 0)
+    del gaps
+    m = torch.where(occ, live, KEY_MAX)
+    keys = torch.flip(torch.cummin(torch.flip(m, [0]), 0).values, [0])
+    del m
+    vals = torch.where(occ, keys + 1, 0)
+    bufs = tuple(torch.cat([a, a[-K7_WINDOW:]]) for a in (keys, vals, occ))
+    return (*bufs, live[occ])
+
+
+def _k7_batches(torch, keys, live, width: int, count: int, seed: int):
+    """``count`` insert batches of ``width`` padded keys, the first
+    ``K7_PENDING`` fresh (one below a random occupied key), the rest
+    KEY_MAX: (keys, vals, j, icap, pending) of each, j from an exact search
+    of the view as it stands."""
+    from repro_torch.core.types import KEY_MAX
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cap = keys.shape[0] - K7_WINDOW
+    out = []
+    for _ in range(count):
+        q = torch.full((width,), KEY_MAX, dtype=torch.int64, device="cuda")
+        pick = torch.randint(0, live.shape[0], (K7_PENDING,), generator=g,
+                             device="cuda")
+        q[:K7_PENDING] = live[pick] - 1
+        j = torch.searchsorted(keys[:cap], q, right=True) - 1
+        j = torch.clamp(j, max=cap - 1)
+        icap = torch.full_like(q, cap - 1)
+        out.append((q, q * 2 + 2, j, icap, q != KEY_MAX))
+    return out
+
+
+def run_window_insert(torch):
+    """Phase 23: K7 at the read_heavy cell's shape — ``K7_KEYS`` loaded keys
+    (a capacity of ``K7_SLOTS_PER_KEY`` slots a key, W 64), ``K7_PENDING``
+    fresh keys in a batch of 4096 (the wave) and of 512 (the insert's own
+    padded width). Three rounds of the kernel pair and of the plain version
+    on copies of one view must leave the same bytes; then device ms per
+    call of the pair (and of each launch), the wrapper's call ms between
+    CUDA events (the claim array's fill and the dispatch included), the
+    plain version's device ms and its call ms, each call on a fresh batch.
+    Returns the timing of the 4096-wide batch (the other width under
+    ``variants``) and the phase's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.window_insert import (
+        window_insert,
+        window_insert_plain,
+    )
+
+    W = K7_WINDOW
+    cap = -(-int(K7_KEYS * K7_SLOTS_PER_KEY) // W) * W
+    sk, sv, so, live = _k7_view(torch, cap, K7_SEED)
+    kw = dict(cap=cap, total=cap, window=W, movement_k=K7_MOVEMENT_K)
+
+    def counters():
+        return (torch.zeros((), dtype=torch.int64, device="cuda"),
+                torch.full((), np.iinfo(np.int64).max, dtype=torch.int64,
+                           device="cuda"))
+
+    # byte for byte: three rounds each way on copies of the view
+    b = _k7_batches(torch, sk, live, K7_WIDTHS[0], 1, K7_SEED + 1)[0]
+    res = []
+    for fn in (window_insert, window_insert_plain):
+        bufs = tuple(a.clone() for a in (sk, sv, so))
+        n_placed, min_span = counters()
+        pending, oks = b[4].clone(), []
+        for _ in range(3):
+            ok, span = fn(*bufs, *b[:4], pending, **kw, n_placed=n_placed,
+                          min_span=min_span)
+            oks += [ok, span]
+            pending = pending & ~ok
+        res.append([*bufs, *oks, n_placed, min_span])
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*res))
+    require(same, "K7: the kernel pair and its plain version differ")
+    placed = int(res[0][-2])
+    require(placed > 0, "K7: no key was placed")
+    del res
+
+    rows = torch.unique(torch.clamp(torch.minimum(b[2] + 1, b[3]), 0,
+                                    cap - 1)[:K7_PENDING] // W).numel()
+    ops.reset_launch_counts()
+    timing = {}
+    for width in K7_WIDTHS:
+        # a fresh batch for every call the timing makes, profiler retries
+        # included
+        n_calls = (2 * (3 + PROFILE_TRIES * K7_ITERS) + 3 + K7_ITERS
+                   + 3 + K7_PLAIN_ITERS)
+        batches = iter(_k7_batches(torch, sk, live, width, n_calls,
+                                   K7_SEED + width))
+        n_placed, min_span = counters()
+
+        def kern(fn=window_insert):
+            fn(sk, sv, so, *next(batches), **kw, n_placed=n_placed,
+               min_span=min_span)
+
+        def plain():
+            kern(window_insert_plain)
+
+        # the launches' own device time: the claim array's fill left out
+        for _ in range(3):
+            kern()
+        torch.cuda.synchronize()
+
+        def body():
+            for _ in range(K7_ITERS):
+                kern()
+
+        dev = _device_events(torch, body)
+        if dev is None:
+            print("K7 timing: the profiler saw no device event; timed "
+                  "between CUDA events", flush=True)
+            per_launch = {}
+            ms = call_ms(torch, kern, K7_ITERS)
+        else:
+            per_launch = {
+                name: _per_call_ms([e for e in dev if name in e.name],
+                                   K7_ITERS)
+                for name in ("window_insert_claim", "window_insert_apply")}
+            ms = sum(per_launch.values())
+        # the batch in (keys, vals, j, icap, pending) and out (ok, span)
+        # once, and each accepted row read and written (17 bytes a slot)
+        n_bytes = width * (4 * 8 + 1 + 1 + 8) + rows * W * 17 * 2
+        timing[width] = dict(
+            ms=ms, per_launch_ms=per_launch,
+            call_ms=call_ms(torch, kern, K7_ITERS),
+            plain_ms=device_ms(torch, plain, K7_PLAIN_ITERS),
+            plain_call_ms=call_ms(torch, plain, K7_PLAIN_ITERS),
+            library_ms=None, bytes=n_bytes, bound=bound_ms(n_bytes, 0),
+            shape=dict(cap=cap, window=W, width=width, pending=K7_PENDING,
+                       rows=rows),
+        )
+        del batches
+    launches = ops.launch_counts()
+    head = dict(timing[K7_WIDTHS[0]],
+                variants={f"width_{w}": timing[w] for w in K7_WIDTHS[1:]})
+    print("K7 timing " + json.dumps(dict(head, placed=placed,
+                                          card=card_line())), flush=True)
+    del sk, sv, so, live
+    torch.cuda.empty_cache()
+    return head, launches
+
+
 def main() -> int:
     # phase 19d's deterministic resume needs cuBLAS's fixed workspace
     # (the H100's default size), set before the first cuBLAS handle
@@ -5153,6 +5335,8 @@ def main() -> int:
     phase_done("21 BMAT types")
     _, pass_launches = run_gateway_passthrough(torch)
     phase_done("22 gateway passthrough")
+    timing["window_insert"], k7_launches = run_window_insert(torch)
+    phase_done("23 window insert")
     timing["ragged_dot"] = k6_timing
     timing["ragged_dot_wgrad"] = k6w_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
@@ -5166,6 +5350,8 @@ def main() -> int:
         "spline_lookup": (K5_SOURCE, K5_REPLACES, max(a[1] for a in api)),
         "ragged_dot": (K6_SOURCE, K6_REPLACES, k6_err),
         "ragged_dot_wgrad": (K6W_SOURCE, K6W_REPLACES, k6w_err),
+        # byte for byte, or run_window_insert raises
+        "window_insert": (K7_SOURCE, K7_REPLACES, 0),
     }
     paths = {"uplif": launches, "router": r_launches,
              "uplif_range": range_launches, "router_range": rr_launches,
@@ -5176,7 +5362,8 @@ def main() -> int:
              "baselines": b_launches, "pipeline": p_launches,
              "lm_serve": lm_launches, **moe_launches, **rec_launches,
              **train_launches, **launch_launches,
-             "bmat_types": bmat_launches, **pass_launches}
+             "bmat_types": bmat_launches, **pass_launches,
+             "window_insert": k7_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
@@ -5191,7 +5378,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
                                  "library_cold_ms", "library_error", "shape",
-                                 "path", "kernel_paths", "variants")
+                                 "path", "kernel_paths", "variants",
+                                 "per_launch_ms", "plain_call_ms")
                if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

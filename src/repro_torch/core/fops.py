@@ -13,9 +13,10 @@ keeps every grid window in bounds.
 
 The insert path is the JAX package's grid-segment formulation: windows are
 aligned to a fixed W-grid, so the greedy non-overlapping window choice
-collapses to "first pending key per grid segment" — one stable sort and one
-segment-boundary compare — and all accepted windows run through one
-vectorized bounded shift and fill-forward repair.
+collapses to "first pending key per grid segment", and all accepted windows
+run through one bounded shift and fill-forward repair. Each round of it is
+K7 (``kernels/window_insert.py``): two launches on CUDA, the reference's
+stable sort and vectorized round on the CPU.
 
 Aliasing: no op writes into a tensor it was given. ``insert`` copies the
 three slot arrays once (with one spare W-row) and then updates its own
@@ -55,6 +56,7 @@ from repro_torch.core.state import (
 from repro_torch.core.types import BMATState, KEY_MAX, TOMBSTONE, SlotsState
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bmat_rank import bmat_rank as k2_rank
+from repro_torch.kernels.window_insert import window_insert
 
 _I64_MAX = int(np.iinfo(np.int64).max)
 
@@ -206,93 +208,6 @@ def _dedup_last_wins(keys):
     return out
 
 
-def _inplace_window_insert(
-    sk_buf, sv_buf, so_buf, cap: int, q_keys, q_vals, starts, accept, valid,
-    window: int, movement_k: int,
-):
-    """One vectorized round of conflict-free in-place window inserts.
-
-    ``sk_buf``/``sv_buf``/``so_buf`` are the insert's own slot copies of
-    length cap + W (the last W-row is spare); the accepted rows are written
-    into them in place. ``starts`` are sorted grid-aligned window starts;
-    ``accept`` marks the per-grid-segment representative (disjoint by
-    construction). Returns the success mask and the key span of failed
-    windows (granularity measure S2)."""
-    W = window
-    K = movement_k
-    t_idx = torch.arange(W, dtype=torch.int64, device=q_keys.device)[None, :]
-    idx = starts[:, None] + t_idx
-    w_k = sk_buf[idx]
-    w_v = sv_buf[idx]
-    w_o = so_buf[idx]
-
-    k_col = q_keys[:, None]
-    ip = (w_k < k_col).sum(dim=1, keepdim=True)  # first slot with key >= k
-
-    # nearest empty slot left / right of the insertion point
-    left_cand = torch.where(~w_o & (t_idx < ip), t_idx, -1)
-    l = left_cand.max(dim=1, keepdim=True).values
-    right_cand = torch.where(~w_o & (t_idx >= ip), t_idx, 2 * W)
-    r = right_cand.min(dim=1, keepdim=True).values
-    ip0, l0, r0 = ip[:, 0], l[:, 0], r[:, 0]
-
-    margin = 2
-    in_bounds = (ip0 >= margin) & (ip0 <= W - margin)
-    # fill-forward safety: the empty run containing the insertion point must
-    # START inside the window (an occupied slot left of ip in-window, or the
-    # window begins at slot 0); otherwise empties left of the window would
-    # keep a stale fill key and break global sortedness.
-    has_left_occ = (w_o & (t_idx < ip)).any(dim=1) | (starts == 0)
-    in_bounds = in_bounds & has_left_occ
-    r_ok = (r0 < W - 1) & (r0 - ip0 <= K)
-    l_ok = (l0 >= 1) & (ip0 - 1 - l0 <= K)
-    use_right = r_ok & (~l_ok | (r0 - ip0 <= ip0 - 1 - l0))
-    use_left = l_ok & ~use_right
-    can = accept & in_bounds & (use_right | use_left)
-
-    ur = use_right[:, None]
-    # gather-source schedule for the bounded shift
-    src = torch.where(
-        ur & (t_idx > ip) & (t_idx <= r),
-        t_idx - 1,
-        torch.where(~ur & (t_idx >= l) & (t_idx < ip - 1), t_idx + 1, t_idx),
-    )
-    src = torch.clamp(src, 0, W - 1)
-    n_k = torch.gather(w_k, 1, src)
-    n_v = torch.gather(w_v, 1, src)
-    n_o = torch.gather(w_o, 1, src)
-
-    place = torch.where(use_right, ip0, ip0 - 1)[:, None]
-    at = t_idx == place
-    n_k = torch.where(at, k_col, n_k)
-    n_v = torch.where(at, q_vals[:, None], n_v)
-    n_o = n_o | at
-
-    # keep untouched windows byte-identical
-    cc = can[:, None]
-    n_k = torch.where(cc, n_k, w_k)
-    n_v = torch.where(cc, n_v, w_v)
-    n_o = torch.where(cc, n_o, w_o)
-
-    # fill-forward repair: an empty slot's fill key = min occupied key at or
-    # after it; if none in-window, the unchanged boundary fill of the last
-    # slot applies. Both collapse to one reverse cummin.
-    m = torch.where(n_o, n_k, KEY_MAX)
-    suffix_min = torch.flip(torch.cummin(torch.flip(m, [1]), dim=1).values, [1])
-    n_k = torch.minimum(suffix_min, n_k[:, W - 1:])
-
-    # writeback: accepted windows are distinct grid rows; the rest aim at
-    # the spare row
-    rows = torch.where(accept, starts // W, cap // W)
-    sk_buf.view(-1, W)[rows] = n_k
-    sv_buf.view(-1, W)[rows] = n_v
-    so_buf.view(-1, W)[rows] = n_o
-
-    span = w_k[:, W - 1] - w_k[:, 0]
-    failed_span = torch.where(accept & ~can & valid, span, _I64_MAX)
-    return can, failed_span
-
-
 def _merge_pending(static, bmat: BMATState, keys, vals, pending, n_bmat_live):
     """Route the still-pending batch into the BMAT arrays (value updates for
     keys already buffered — incl. tombstone revival — sorted merge for fresh
@@ -328,9 +243,9 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
       1. locate + probe: keys already in place get a value update (incl.
          tombstone revival); keys live in the BMAT get updated there
          (round 1 only — the pending set can't gain such keys mid-call);
-      2. grid-segment accept: each pending key maps to the W-aligned window
-         holding its insertion slot; the first pending key of each segment
-         is accepted, and all accepted windows run through one vectorized
+      2. grid-segment accept (K7): each pending key maps to the W-aligned
+         window holding its insertion slot; the first pending key of each
+         segment is accepted, and all accepted windows run through one
          bounded shift + fill-forward repair.
     Leftovers merge into the BMAT, unless ``merge_overflow=False``: the
     subset retrain re-homes BMAT keys itself and passes both flags off
@@ -340,7 +255,6 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
     cap = state.slots.keys.shape[0]
     if cap % W:
         raise ValueError("slot capacity must be W-aligned (nullifier align)")
-    nw = cap // W
     with tracing.span("fops.insert.place"):
         # the insert's own slot copies, each with one spare W-row at the end
         sk_buf, sv_buf, so_buf = (
@@ -352,9 +266,12 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
 
         pending = (keys != KEY_MAX) & ~_dedup_last_wins(keys)
         n_keys, n_bmat_live = c.n_keys, c.n_bmat_live
-        n_inplace, min_gran = c.n_inplace, c.min_granularity
+        # the rounds add their placed keys here and lower the granularity
+        n_placed = torch.zeros((), dtype=torch.int64, device=keys.device)
+        min_gran = c.min_granularity.clone()
 
         for rnd in range(max(1, static.insert_rounds)):
+            tracing.count("insert.rounds")
             qk = torch.where(pending, keys, KEY_MAX)
             j, icap = _locate(static, sk, state.model, qk)
             if rnd == 0:
@@ -371,35 +288,17 @@ def insert(state: UpLIFState, keys, vals, *, static: UpLIFStatic,
                     bmat = bmat._replace(
                         vals=_scatter_drop(bmat.vals, bidx, vals, upd))
                     pending = pending & ~upd
-                qk = torch.where(pending, keys, KEY_MAX)
-                j = torch.where(pending, j, cap - 1)
 
-            # grid-segment accept; clamp to the locate span so a boundary the
-            # bounded search could not prove lands in the BMAT, never outside
-            # the searched rows
-            ins_slot = torch.clamp(torch.minimum(j + 1, icap), 0, cap - 1)
-            bucket = torch.where(pending, ins_slot // W, nw + 1)
-            order = torch.argsort(bucket, stable=True)  # ties keep key order
-            qs = qk[order]
-            vs = vals[order]
-            bs = bucket[order]
-            pend_s = pending[order]
-            first = torch.ones_like(pend_s)
-            first[1:] = bs[1:] != bs[:-1]
-            accept = pend_s & first
-            starts = torch.clamp(bs * W, 0, cap - W)
-            can, failed_span = _inplace_window_insert(
-                sk_buf, sv_buf, so_buf, cap, qs, vs, starts, accept, pend_s,
-                W, static.movement_k,
+            # K7: grid-segment accept, bounded shift and fill-forward repair
+            # of the accepted windows
+            ok, _ = window_insert(
+                sk_buf, sv_buf, so_buf, keys, vals, j, icap, pending,
+                cap=cap, total=cap, window=W, movement_k=static.movement_k,
+                n_placed=n_placed, min_span=min_gran,
             )
-            ok = can & pend_s
-            n_ok = ok.sum()
-            n_inplace = n_inplace + n_ok
-            n_keys = n_keys + n_ok
-            min_gran = torch.minimum(min_gran, failed_span.min())
-            placed = torch.empty_like(ok)
-            placed[order] = ok
-            pending = pending & ~placed
+            pending = pending & ~ok
+        n_inplace = c.n_inplace + n_placed
+        n_keys = n_keys + n_placed
 
     n_over = torch.zeros((), dtype=torch.int64, device=keys.device)
     if merge_overflow:
@@ -896,10 +795,8 @@ def sinsert(state: UpLIFState, keys, vals, boundaries, codes=None, *,
     S, cap = state.slots.keys.shape
     if cap % W:
         raise ValueError("slot capacity must be W-aligned (nullifier align)")
-    N = keys.shape[0]
     total = S * cap
     sid = _route_on_device(boundaries, keys)
-    nw_per = cap // W
     sk_buf, sv_buf, so_buf = (
         torch.cat([a.reshape(-1), a.reshape(-1)[-W:]]) for a in state.slots
     )
@@ -912,6 +809,7 @@ def sinsert(state: UpLIFState, keys, vals, boundaries, codes=None, *,
     n_inplace, min_gran = c.n_inplace, c.min_granularity
 
     for rnd in range(max(1, static.insert_rounds)):
+        tracing.count("insert.rounds")
         qk = torch.where(pending, keys, KEY_MAX)
         j, icap = _locate_stacked(static, sk.view(S, cap), state.model, qk,
                                   sid, codes)
@@ -929,39 +827,22 @@ def sinsert(state: UpLIFState, keys, vals, boundaries, codes=None, *,
                                   vals, upd).reshape(S, bcap)
             bmat = bmat._replace(vals=bvals)
             pending = pending & ~hit & ~upd
-            qk = torch.where(pending, keys, KEY_MAX)
 
-        # global grid-segment accept over the flat view
-        ins_slot = torch.clamp(torch.minimum(j + 1, icap), 0, cap - 1)
-        bucket = torch.where(pending, sid * nw_per + ins_slot // W,
-                             S * nw_per + 1)
-        order = torch.argsort(bucket, stable=True)
-        qs = qk[order]
-        vs = vals[order]
-        bs = bucket[order]
-        ps = pending[order]
-        first = torch.ones_like(ps)
-        first[1:] = bs[1:] != bs[:-1]
-        accept = ps & first
-        starts = torch.clamp(bs * W, 0, total - W)
-        can, failed_span = _inplace_window_insert(
-            sk_buf, sv_buf, so_buf, total, qs, vs, starts, accept, ps,
-            W, static.movement_k,
+        # K7 over the flat view: each key's grid row is its shard's
+        ok, failed_span = window_insert(
+            sk_buf, sv_buf, so_buf, keys, vals, j, icap, pending, sid,
+            cap=cap, total=total, window=W, movement_k=static.movement_k,
         )
-        ok = can & ps
-        sid_w = torch.clamp(bs // nw_per, 0, S - 1)
-        ok_per = _seg_add(S, sid_w, ok)
+        ok_per = _seg_add(S, sid, ok)
         n_inplace = n_inplace + ok_per
         n_keys = n_keys + ok_per
         span_per = torch.full((S + 1,), _I64_MAX, dtype=torch.int64,
                               device=keys.device).scatter_reduce(
-            0, torch.where(failed_span < _I64_MAX, sid_w, S), failed_span,
+            0, torch.where(failed_span < _I64_MAX, sid, S), failed_span,
             reduce="amin",
         )[:S]
         min_gran = torch.minimum(min_gran, span_per)
-        done = torch.empty_like(ok)
-        done[order] = ok
-        pending = pending & ~done
+        pending = pending & ~ok
 
     bmat, n_bmat_live, n_over = _merge_pending_stacked(
         static, bmat, keys, vals, pending, sid, n_bmat_live, codes

@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
            "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu",
-           "ragged_dot_wgrad.cu")
+           "ragged_dot_wgrad.cu", "window_insert.cu")
 HEADERS = ("key_delta.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,6 +44,7 @@ LINK_FLAGS = ("-lcuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # launcher name -> argtypes (pointers and the stream as void*, ints as int)
 SIGNATURES = {
     # table, spline_keys, spline_pos, shift, slot_keys, queries, sid,
@@ -59,12 +60,18 @@ SIGNATURES = {
     "spline_lookup_launch": [_P] * 5 + [_I] * 6 + [_P],
     # slots, queries, seg_tile, seg_start, out, n_seg, n, cap, pass_lo,
     # pass_hi, stream
-    "tile_search_launch": [_P] * 5 + [_I] + [ctypes.c_longlong] * 2
+    "tile_search_launch": [_P] * 5 + [_I] + [_LL] * 2
                           + [_I, _I, _P],
     # lhs, rhs, group_sizes, out, m, k, n, g, bf16, tma, trans, stream
     "ragged_dot_launch": [_P] * 4 + [_I] * 7 + [_P],
     # lhs, dout, group_sizes, drhs, m, k, n, g, bf16, tma, stream
     "ragged_dot_wgrad_launch": [_P] * 4 + [_I] * 6 + [_P],
+    # j, icap, sid (or null), pending, claim, n, cap, window, n_rows, stream
+    "window_insert_claim_launch": [_P] * 5 + [_I, _LL, _I, _LL, _P],
+    # sk, sv, so, keys, vals, j, icap, sid (or null), pending, claim, ok,
+    # failed_span, n_placed, min_span (both or neither null), n, cap,
+    # n_rows, window, movement_k, stream
+    "window_insert_apply_launch": [_P] * 14 + [_I, _LL, _LL, _I, _I, _P],
 }
 
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import gmm_estep as _estep
 from repro_torch.kernels import ragged_dot as _ragged
 from repro_torch.kernels import spline_lookup as _locate
 from repro_torch.kernels import tile_search as _tiles
+from repro_torch.kernels import window_insert as _window
 from repro_torch.kernels.tile_search import Q_BLK, TILE
 
 MAX_F32_POSITIONS = 1 << 24  # f32 slot positions are exact below this
@@ -226,6 +227,7 @@ def launch_counts() -> dict:
         "spline_lookup": _locate.spline_lookup.launches,
         "ragged_dot": _ragged.ragged_dot.launches,
         "ragged_dot_wgrad": _ragged.ragged_dot_wgrad.launches,
+        "window_insert": _window.window_insert.launches,
     }
 
 
@@ -237,6 +239,7 @@ def reset_launch_counts() -> None:
     _locate.spline_lookup.launches = 0
     _ragged.ragged_dot.launches = 0
     _ragged.ragged_dot_wgrad.launches = 0
+    _window.window_insert.launches = 0
     for wrapper in (_ragged.ragged_dot, _ragged.ragged_dot_wgrad):
         for p in wrapper.launches_by_path:
             wrapper.launches_by_path[p] = 0

@@ -416,7 +416,7 @@ def test_guards():
     assert set(ops.launch_counts()) == {"fused_locate", "bmat_rank",
                                         "gmm_estep", "tile_search",
                                         "spline_lookup", "ragged_dot",
-                                        "ragged_dot_wgrad"}
+                                        "ragged_dot_wgrad", "window_insert"}
 
 
 # ---------------------------------------------------------------------------

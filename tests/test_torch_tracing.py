@@ -225,3 +225,59 @@ def test_the_buffer_stops_at_its_bound_and_counts_what_it_drops(
     assert [s[4] for s in snap["spans"]] == [{}, {"x": 1}, {"x": 1}]
     tracing.reset()
     assert tracing.snapshot() == {"spans": [], "counts": {}, "dropped": 0}
+
+
+def test_the_rounds_are_counted_and_none_takes_k7_on_the_cpu(keys):
+    """Each Movement round counts ``insert.rounds``; on the CPU the round
+    is K7's plain version, so ``insert.rounds_kernel`` is never counted."""
+    idx = _index(keys)
+    tracing.enable()
+    for seed in range(2):
+        idx.insert(make_keys(500, seed=30 + seed, hi=1 << 40))
+    counts = tracing.snapshot()["counts"]
+    assert counts["insert.rounds"] == 2 * idx.cfg.insert_rounds
+    assert "insert.rounds_kernel" not in counts
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_every_round_takes_k7_on_the_card(cuda, keys):
+    idx = UpLIF(keys, config=UpLIFConfig(), device=cuda)
+    tracing.enable()
+    for seed in range(3):
+        idx.insert(make_keys(500, seed=40 + seed, hi=1 << 40))
+    snap = tracing.snapshot()
+    rounds = 3 * idx.cfg.insert_rounds
+    assert snap["counts"]["insert.rounds"] == rounds
+    assert snap["counts"]["insert.rounds_kernel"] == rounds
+    for top in _tops(snap):
+        assert _subtree_counts(snap, top)["insert.rounds_kernel"] == \
+            idx.cfg.insert_rounds
+
+
+@pytest.mark.gpu
+def test_no_host_sync_in_the_placement_on_the_card(cuda, keys):
+    """The placement (``fops.insert`` without the merge: the subset
+    retrain's call, K7's every round) runs with the card's sync check on:
+    any operation that waits for the card raises."""
+    from repro_torch.core import fops
+
+    idx = UpLIF(keys, config=UpLIFConfig(), device=cuda)
+    new = torch.tensor(make_keys(2048, seed=50, hi=1 << 40), device=cuda)
+    fops.insert(idx.fstate, new, new + 1, static=idx.fstatic(),
+                merge_overflow=False)              # warm: the library loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, res = fops.insert(idx.fstate, new, new + 1,
+                                 static=idx.fstatic(), merge_overflow=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not bool(res.pending.all())
+    assert int(state.counters.n_inplace) > 0
