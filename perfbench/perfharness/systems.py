@@ -1,9 +1,9 @@
 """The system under test, built from a configuration file, and the control.
 
-``build(cfg, keys, vals, device, rec)`` returns the port's index as the
-configuration deploys it: one ``UpLIF``. The harness calls it only
-through the methods below, and opens its spans around each call into a
-layer.
+``build(cfg, keys, vals, device, rec)`` returns the system that the
+configuration names, as it deploys it: the ``build`` of
+``perfbench/systems/<system>.py`` (``perfharness/spec.py`` gives the
+contract).
 
 ``Control`` is the plain reference put in the program's place, computed
 in a lower precision than the configuration states: its keys are held
@@ -12,48 +12,18 @@ and compared as float32. The benchmark's own runs never build it;
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
-
-def index_config(cfg: dict):
-    """The port's ``UpLIFConfig`` for the configuration's index knobs."""
-    from repro_torch.core.uplif import UpLIFConfig
-
-    return UpLIFConfig(**cfg["index"])
+from perfharness import spec
 
 
-class IndexSystem:
-    """One ``UpLIF``: the paper's index."""
-
-    def __init__(self, cfg, keys, vals, device, rec):
-        from repro_torch.core.uplif import UpLIF
-
-        self.rec = rec
-        self.index = UpLIF(keys, vals, index_config(cfg), device=device)
-
-    def wave(self, reads, ins, ins_vals):
-        rec = self.rec
-        found = vals = None
-        if len(reads):
-            with rec.span("index.lookup", sync=True):
-                found, vals = self.index.lookup(reads)
-        if len(ins):
-            with rec.span("index.insert", sync=True):
-                self.index.insert(ins, ins_vals)
-        return found, vals
-
-    def contents(self):
-        return self.index.extract_live()
-
-    def close(self):
-        self.index = None
-
-
-def build(cfg: dict, keys, vals, device, rec):
-    kind = cfg["system"]
-    if kind == "uplif":
-        return IndexSystem(cfg, keys, vals, device, rec)
-    raise ValueError(f"unknown system {kind!r}")
+def build(cfg: dict, keys, vals, device, rec,
+          bench_dir: Path = spec.BENCH_DIR):
+    """The ``build`` of ``systems/<cfg["system"]>.py`` under ``bench_dir``."""
+    return spec.system(cfg["system"], bench_dir).build(cfg, keys, vals,
+                                                       device, rec)
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,18 @@ for _p in (str(ROOT / "src"), str(BENCH_DIR)):
     if _p not in sys.path:
         sys.path.insert(0, _p)
 
-from perfharness import cell as _cell  # noqa: E402
 from perfharness import spec  # noqa: E402
 
 SMALL = {"keys": 40_000, "init_keys": 20_000, "batch": 256}
-# a test's window holds a few waves: bytes_per_key is read after the fourth
-_cell.MEMORY_WAVE = 4
+
+
+def small_waves(bench_dir: Path = BENCH_DIR):
+    """A test's window holds a few waves: the waves loop under
+    ``bench_dir`` reads bytes_per_key after the fourth."""
+    spec.loop("waves", bench_dir).MEMORY_WAVE = 4
+
+
+small_waves()
 SEED = 3_000_000_019          # above 2**31, as a run's seed may be
 
 

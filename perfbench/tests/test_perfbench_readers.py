@@ -1,10 +1,19 @@
-"""Each per-layer metric's reader over a synthetic traced run."""
+"""Each per-layer metric's reader over a synthetic traced run.
+
+The readers built on ``perfharness/program.py`` also read the program's
+tracer (``repro_torch.tracing``): for each test, ``_program_trace``
+records into it the program's spans of the run's two lookup waves, after
+an insert of an earlier stretch, and empties it afterwards. The
+read-heavy case is in ``test_perfbench_program.py``.
+"""
 import json
 
 import pytest
 import perfbench_testlib  # noqa: F401 — the import paths
+from program_trace import insert_call, lookup_call, play
 
 from perfharness import cell, spec, trace
+from repro_torch import tracing
 
 BENCH = json.loads((perfbench_testlib.ROOT / "BENCHMARK.json").read_text())
 # every reader under perfbench/metrics/, those of BENCHMARK.json among them
@@ -34,6 +43,7 @@ def _record(profile):
                "index.insert": [0.010, 0.012, 0.011]},
         profile=profile,
         kernel_bytes={"k1": [335_000, 335_000], "k2": [67_000]},
+        ops=16_384,
     )
 
 
@@ -44,7 +54,25 @@ EXPECTED = {
     "device.idle_share": 87.0,        # 13 ms busy of 100
     "k1_roofline": 100 * (335_000 / 3.35e12) / 0.0035,
     "k2_roofline": 100 * (67_000 / 3.35e12) / 0.0025,
+    # two lookups, three host syncs each
+    "index.syncs_per_wave": 3.0,
+    # idle inside the dispatch spans: 5 + 7 + 3 ms, 5 + 12 ms, of 87 ms
+    "device.idle_in_dispatch_share": 100 * 0.032 / 0.087,
+    # the stretch held no insert (the earlier stretch's is not read)
+    "index.insert_place_ms_p50": None,
+    "index.insert_merge_ms_p50": None,
+    "index.overflow_share": None,
+    "ops_per_s.read_only": 1638.4,   # 16,384 operations in 10 s
 }
+
+
+@pytest.fixture(autouse=True)
+def _program_trace():
+    tracing.reset()
+    play([insert_call(0.5, 0.010, 0.004, 400, 100), lookup_call(1.0),
+          lookup_call(2.0)])
+    yield
+    tracing.reset()
 
 
 def test_every_metric_of_the_benchmark_has_a_reader():

@@ -102,14 +102,15 @@ def test_memory_is_read_after_the_same_wave_whatever_the_window(
     every run reads it after the same operations."""
     import torch
 
-    from perfharness import cell, systems
+    from perfharness import cell, spec, systems
     from perfharness.trace import Recorder
 
-    monkeypatch.setattr(cell, "MEMORY_WAVE", memory_wave)
+    waves = spec.loop("waves")
+    monkeypatch.setattr(waves, "MEMORY_WAVE", memory_wave)
     c = perfbench_testlib.small_cell("uplif-wikits-16m.read_heavy")
     warmup = int(c.traffic["warmup_waves"])
-    r = cell.WaveRun(c, 5, "cpu", Recorder(False),
-                     cell._Device(torch, "cpu"), systems.build)
+    r = waves.Run(c, 5, "cpu", Recorder(False),
+                  cell._Device(torch, "cpu"), systems.build)
     w = r.window(seconds, None, 1.0, False)
     assert (w["waves"] == 0) == (seconds == 0.0)
     assert r.memory[1] == 2 * (warmup + memory_wave)
