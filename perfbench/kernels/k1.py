@@ -6,7 +6,9 @@ indices it reads from each array. The bytes a launch needs are counted
 from them as the least traffic the launch must move: each input byte read
 once (the distinct elements of the radix table, the knots, their
 positions, the shift and the slot keys that these queries reach), every
-query and shard id read once, and both int64 outputs written once.
+query and shard id read once, and both int64 outputs written once. The
+copy interpolates as the launch was asked to (``interp64``): the caller
+chooses float32 or float64, and the count follows its choice.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import torch
 
 NAME = "k1"
 KERNEL = "fused_locate"                       # device kernel name, launch key
-ENTRY = ("repro_torch.kernels.ops", "fused_locate")   # the call to observe
-MAX_F32_POSITIONS = 1 << 24
+#: the call to observe: the kernel's wrapper, which ``ops.fused_locate``
+#: calls through its module with the interpolation it chose
+ENTRY = ("repro_torch.kernels.spline_lookup", "fused_locate")
 _TWO32 = 4294967296.0
 
 
@@ -42,7 +45,8 @@ def _fma_f32(a, b, c):
 
 
 def plain(table, spline_keys, spline_pos, shift, slot_keys, queries,
-          sid=None, *, n_table, n_knots, cap, window, rs_iters, reads=None):
+          sid=None, *, n_table, n_knots, cap, window, rs_iters,
+          interp64=False, reads=None):
     """(j, start) as the kernel computes them; appends the indices read
     from each array to ``reads[name]`` when given."""
     def get(name, arr, idx):
@@ -50,7 +54,6 @@ def plain(table, spline_keys, spline_pos, shift, slot_keys, queries,
             reads.setdefault(name, []).append(idx.reshape(-1))
         return arr[idx]
 
-    interp64 = not (cap <= MAX_F32_POSITIONS and n_knots >= 2)
     L = min(3 * window, cap)
     n_bisect = max(1, int(np.ceil(np.log2(L))))
     if sid is None:
@@ -106,6 +109,7 @@ def bytes_of(args, kwargs) -> int:
     sid = args[6] if len(args) > 6 else kwargs.get("sid")
     kw = {k: kwargs[k] for k in ("n_table", "n_knots", "cap", "window",
                                  "rs_iters")}
+    kw["interp64"] = bool(kwargs.get("interp64", False))
     reads = {}
     plain(table, spline_keys, spline_pos, shift, slot_keys, queries, sid,
           reads=reads, **kw)

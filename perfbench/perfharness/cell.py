@@ -40,6 +40,9 @@ class RunRecord:
     profile: Optional[Profile]
     kernel_bytes: Dict[str, List[int]]
     ops: int = 0            # operations finished in the window
+    #: the system's ``PROGRAM_SPANS``: each program top span, the harness
+    #: span around it (``perfharness/program.py``)
+    program_spans: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
 def forbidden_modules(names=None) -> List[str]:
@@ -123,19 +126,22 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     stretch = None
     profile_s = float(cell.traffic.get("profile_seconds", 1.0))
-    if trace and dev.cuda:
-        stretch = Stretch(rec, torch, dev.launch_counts, PROFILE_TRIES)
+    if trace:
+        # off the card the profiler sees the host alone: one try, short
+        stretch = Stretch(rec, dev, PROFILE_TRIES if dev.cuda else 1)
         with rec.phase("profiler"):
             stretch.warm_up()
     setup_s = time.perf_counter() - t_process
     w = run.window(seconds, stretch, profile_s, trace)
     if stretch is not None:
-        while stretch.result().short and stretch.n_tries < PROFILE_TRIES:
+        # a window that closed before its stretch began is profiled past it
+        while not stretch.n_tries or (stretch.result().short
+                                      and stretch.n_tries < stretch.tries):
             run.extra_stretch(stretch, profile_s)
 
     kernel_bytes: Dict[str, List[int]] = {}
     if trace:
-        run.probe(spec.kernel_modules(), kernel_bytes)
+        run.probe(spec.kernel_modules(cell.bench_dir), kernel_bytes)
     peak = dev.peak()
     prog_keys, prog_vals = run.system.contents()
     run.system.close()
@@ -165,10 +171,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         profile=rec.profiles[-1] if rec.profiles else None,
         kernel_bytes=kernel_bytes,
         ops=int(w.get("ops", 0)),
+        program_spans=dict(getattr(
+            spec.system(cell.config["system"], cell.bench_dir),
+            "PROGRAM_SPANS", {})),
     )
     if trace:
         for m in cell.per_layer:
-            v = spec.metric_reader(m["name"])(record)
+            v = spec.metric_reader(m["name"], cell.bench_dir)(record)
             if v is not None:
                 metrics[m["name"]] = {"value": float(v), "unit": units[m["name"]]}
 

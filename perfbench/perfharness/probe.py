@@ -15,6 +15,29 @@ import importlib
 import threading
 
 
+class _Observed:
+    """An entry that counts each call's bytes into ``out[name]``, then
+    calls the entry. Its attributes are the entry's: a kernel's wrapper
+    counts its own launches on itself (``fused_locate.launches``), through
+    its module, which holds this object while the probe runs."""
+
+    def __init__(self, entry, mod, name, out, lock):
+        object.__setattr__(self, "_probe", (entry, mod, name, out, lock))
+
+    def __call__(self, *args, **kwargs):
+        entry, mod, name, out, lock = self._probe
+        n_bytes = mod.bytes_of(args, kwargs)
+        with lock:
+            out.setdefault(name, []).append(n_bytes)
+        return entry(*args, **kwargs)
+
+    def __getattr__(self, attr):
+        return getattr(self._probe[0], attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self._probe[0], attr, value)
+
+
 @contextlib.contextmanager
 def observe(kmods: dict, out: dict):
     """Within the block, ``out[name]`` gathers the bytes of every launch
@@ -24,14 +47,7 @@ def observe(kmods: dict, out: dict):
     for name, mod in kmods.items():
         target = importlib.import_module(mod.ENTRY[0])
         orig = getattr(target, mod.ENTRY[1])
-
-        def wrapped(*args, _orig=orig, _mod=mod, _name=name, **kwargs):
-            n_bytes = _mod.bytes_of(args, kwargs)
-            with lock:
-                out.setdefault(_name, []).append(n_bytes)
-            return _orig(*args, **kwargs)
-
-        setattr(target, mod.ENTRY[1], wrapped)
+        setattr(target, mod.ENTRY[1], _Observed(orig, mod, name, out, lock))
         saved.append((target, mod.ENTRY[1], orig))
     try:
         yield out

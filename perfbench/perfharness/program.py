@@ -3,31 +3,44 @@
 The program records its spans and counts (``repro_torch.tracing``) while a
 profiler runs, so the tracer holds them for every profiled stretch of a
 traced run, and adds nothing to the profile itself. Inside each harness
-span ``index.lookup`` or ``index.insert`` the program opens one top span,
-``uplif.lookup`` or ``uplif.insert``. ``calls`` pairs the harness spans of
-the final stretch (``run.profile.spans``) one to one with the last top
-spans the tracer recorded, and moves each call's spans onto the profile's
-clock by the start of its harness span. Where the profile is missing, the
-program recorded nothing (a program without the tracer), or the two do
-not pair up, it gives None, and so does every reader built on it.
+span around a call into the system, the program opens one top span. The
+system under test declares which (``PROGRAM_SPANS`` in
+``systems/<system>.py``: each program top span, the harness span around
+it), and the run carries that map (``run.program_spans``).
+
+``calls`` pairs the harness spans of the final stretch
+(``run.profile.spans``) one to one with the last top spans of the map
+that the tracer recorded, and moves each call's spans onto the profile's
+clock by the start of its harness span. ``top_spans`` gives the top spans
+of other names that ran while the final stretch did, such as those that
+the program's worker threads open, where no harness span is around
+them: it moves them by the offset of the stretch's first call. Where the
+profile is missing, the system declares no map, the program recorded
+nothing (a program without the tracer), or the two do not pair up, both
+give None, and so does every reader built on them.
+
+What ``top_spans`` can see: the tracer records a span only if it opened
+while a profiler ran. A worker's span that opened while none did, such as
+a build that straddles the start of the final stretch, is never recorded;
+one that opened in an earlier profiled stretch of the run and runs into
+the final one is read. Each span is cut to the stretch, and its
+``durations`` are the seconds it ran inside it; a span still open when
+the tracer is read runs to the stretch's end.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
 from perfharness.trace import busy_intervals, idle_gaps
 
-#: the program's top span -> the harness span around it
-HARNESS = {"uplif.lookup": "index.lookup", "uplif.insert": "index.insert"}
-
 
 @dataclasses.dataclass
 class Call:
-    """One call into the index, as the program recorded it."""
+    """One top span of the program, as it recorded it."""
 
     name: str                               # its top span
     spans: List[Tuple[str, float, float]]   # its spans, profile clock (s)
@@ -43,24 +56,9 @@ def _snapshot() -> Optional[dict]:
     return tracing.snapshot()
 
 
-def calls(run, snap: Optional[dict] = None) -> Optional[List[Call]]:
-    """The final stretch's calls, in order, or None (see the module)."""
-    p = run.profile
-    if p is None:
-        return None
-    snap = _snapshot() if snap is None else snap
-    if not snap or not snap["spans"]:
-        return None
-    harness = sorted((s for s in p.spans if s[0] in HARNESS.values()),
-                     key=lambda s: s[1])
-    spans = snap["spans"]
-    tops = [i for i, s in enumerate(spans) if s[1] < 0 and s[0] in HARNESS]
-    if not harness or len(tops) < len(harness):
-        return None
-    tops = tops[-len(harness):]
-    if any(HARNESS[spans[i][0]] != h[0] for i, h in zip(tops, harness)):
-        return None
-    # every span under its top span (a parent opens before its children)
+def _members(spans, tops) -> Dict[int, List[int]]:
+    """Every span under each of the top spans ``tops`` (a parent opens
+    before its children)."""
     root = []
     for i, s in enumerate(spans):
         root.append(i if s[1] < 0 else root[s[1]])
@@ -68,21 +66,84 @@ def calls(run, snap: Optional[dict] = None) -> Optional[List[Call]]:
     for i, r in enumerate(root):
         if r in members:
             members[r].append(i)
+    return members
+
+
+def _call(spans, top: int, members: List[int], offset: float, lo: float,
+          hi: float, within: bool = False) -> Optional[Call]:
+    """The top span ``top`` with its ``members``, moved onto the profile's
+    clock by ``offset`` and clipped to ``[lo, hi]``. Its ``durations`` are
+    as the tracer recorded them; None where one of them is still open.
+    ``within``: the durations are the clipped seconds, and a span still
+    open ends at ``hi``."""
+    if not within and any(spans[j][3] is None for j in members):
+        return None
+    call = Call(name=spans[top][0], spans=[], durations={}, counts={})
+    for j in members:
+        name, _, t0, t1, counts = spans[j]
+        a = min(max(1e-9 * t0 + offset, lo), hi)
+        b = hi if t1 is None else min(max(1e-9 * t1 + offset, lo), hi)
+        call.spans.append((name, a, b))
+        call.durations.setdefault(name, []).append(
+            b - a if within else 1e-9 * (t1 - t0))
+        for k, n in counts.items():
+            call.counts[k] = call.counts.get(k, 0) + n
+    return call
+
+
+def _paired(run, snap: Optional[dict]):
+    """(the tracer's spans, the offset of the final stretch's first call,
+    its calls), or None (see the module)."""
+    p = run.profile
+    pairs = run.program_spans
+    if p is None or not pairs:
+        return None
+    snap = _snapshot() if snap is None else snap
+    if not snap or not snap["spans"]:
+        return None
+    harness = sorted((s for s in p.spans if s[0] in pairs.values()),
+                     key=lambda s: s[1])
+    spans = snap["spans"]
+    tops = [i for i, s in enumerate(spans) if s[1] < 0 and s[0] in pairs]
+    if not harness or len(tops) < len(harness):
+        return None
+    tops = tops[-len(harness):]
+    if any(pairs[spans[i][0]] != h[0] for i, h in zip(tops, harness)):
+        return None
+    members = _members(spans, tops)
     out = []
     for i, (_, a, b) in zip(tops, harness):
-        if any(spans[j][3] is None for j in members[i]):
-            return None                         # a span still open
-        offset = a - 1e-9 * spans[i][2]
-        call = Call(name=spans[i][0], spans=[], durations={}, counts={})
-        for j in members[i]:
-            name, _, t0, t1, counts = spans[j]
-            call.spans.append((name, min(max(1e-9 * t0 + offset, a), b),
-                               min(max(1e-9 * t1 + offset, a), b)))
-            call.durations.setdefault(name, []).append(1e-9 * (t1 - t0))
-            for k, n in counts.items():
-                call.counts[k] = call.counts.get(k, 0) + n
+        call = _call(spans, i, members[i], a - 1e-9 * spans[i][2], a, b)
+        if call is None:
+            return None
         out.append(call)
-    return out
+    return spans, harness[0][1] - 1e-9 * spans[tops[0]][2], out
+
+
+def calls(run, snap: Optional[dict] = None) -> Optional[List[Call]]:
+    """The final stretch's calls, in order, or None (see the module)."""
+    paired = _paired(run, snap)
+    return None if paired is None else paired[2]
+
+
+def top_spans(run, names: Iterable[str],
+              snap: Optional[dict] = None) -> Optional[List[Call]]:
+    """The top spans named in ``names`` that the tracer recorded on any
+    thread while the final stretch ran, in the order they opened, each
+    with its spans clipped to the stretch and its durations the seconds
+    inside it (see the module); None where ``calls`` gives None."""
+    paired = _paired(run, snap)
+    if paired is None:
+        return None
+    spans, offset, _ = paired
+    names = set(names)
+    end = run.profile.window_s
+    tops = [i for i, s in enumerate(spans) if s[1] < 0 and s[0] in names
+            and 1e-9 * s[2] + offset < end
+            and (s[3] is None or 1e-9 * s[3] + offset > 0)]
+    members = _members(spans, tops)
+    return [_call(spans, i, members[i], offset, 0.0, end, within=True)
+            for i in tops]
 
 
 def span_ms_p50(run, name: str) -> Optional[float]:

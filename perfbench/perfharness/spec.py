@@ -13,7 +13,10 @@ a file of its own under ``perfbench/``, found by the name it has there:
                            it, with ``wave(reads, ins, ins_vals) -> (found,
                            vals)``, ``contents() -> (keys, vals)`` and
                            ``close()``; it opens the harness's spans
-                           (``rec.span``) around each call into a layer
+                           (``rec.span``) around each call into a layer,
+                           and declares ``PROGRAM_SPANS``: the program's
+                           top span inside each harness span (none: the
+                           program's spans are not read)
   loops/<loop>.py          ``Run(cell, seed, device, rec, dev, factory)``:
                            set-up from the seed, the system built by
                            ``factory(cfg, keys, vals, device, rec)``, the
@@ -27,10 +30,18 @@ a file of its own under ``perfbench/``, found by the name it has there:
   metrics/<metric>.py      ``read(run)``: the metric from the traced run,
                            or None where it finds nothing to read
   kernels/<kernel>.py      ``bytes_of(args, kwargs)``: a launch's bytes
+  tests/cases/<metric>.json  the reader's test case: ``{"trace": <trace>,
+                           "value": <number or null>, "why": <one line>}``
+  tests/traces/<trace>.py  ``record()``: a ``cell.RunRecord``, and
+                           ``play()``: the program's spans of that run,
+                           recorded into ``repro_torch.tracing`` through
+                           its API
 
 A later cell, mix, metric, kernel, system or loop is one more file and one
-more entry. A cell whose system or loop has no file fails by name, before
-any card is touched.
+more entry; a metric also brings its case (and a trace, where no trace
+there holds what it reads). A cell whose system or loop has no file fails
+by name, before any card is touched, and a reader with no case fails the
+readers' test by name.
 """
 from __future__ import annotations
 

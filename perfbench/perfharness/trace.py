@@ -142,11 +142,13 @@ class Stretch:
     ``result()`` marks the stretch short when the profiler saw fewer than
     ``SEEN_SHARE`` of the kernels of a name that the program counted
     launching (or no device event at all); the caller may then profile another stretch past the
-    window, up to ``tries`` in all, and the last one is kept."""
+    window, up to ``tries`` in all, and the last one is kept. ``dev`` is
+    the run's device (``cell._Device``): off CUDA the profiler records
+    the host alone, so the stretch holds the harness's spans and no
+    device event."""
 
-    def __init__(self, rec: Recorder, torch, launch_counts, tries: int = 3):
-        self.rec, self.torch = rec, torch
-        self.launch_counts = launch_counts
+    def __init__(self, rec: Recorder, dev, tries: int = 3):
+        self.rec, self.dev = rec, dev
         self.tries = tries
         self.n_tries = 0
         self._prof = None
@@ -156,22 +158,26 @@ class Stretch:
     def active(self) -> bool:
         return self._prof is not None
 
+    def _activities(self):
+        from torch.profiler import ProfilerActivity
+
+        return [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if self.dev.cuda else [])
+
     def warm_up(self):
         """The profiler's first start takes seconds (CUPTI's set-up): pay
         that before the window."""
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]):
-            self.torch.cuda.synchronize()
+        with profile(activities=self._activities()):
+            self.dev.sync()
 
     def start(self):
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import profile
 
-        self.torch.cuda.synchronize()
-        self._before = dict(self.launch_counts())
-        self._prof = profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA])
+        self.dev.sync()
+        self._before = dict(self.dev.launch_counts())
+        self._prof = profile(activities=self._activities())
         self._prof.__enter__()
         self.rec._profiling = True
         self._t0 = time.perf_counter()
@@ -181,12 +187,12 @@ class Stretch:
         self.waves += 1
 
     def stop(self):
-        self.torch.cuda.synchronize()
+        self.dev.sync()
         window_s = time.perf_counter() - self._t0
         self.rec._profiling = False
         prof, self._prof = self._prof, None
         prof.__exit__(None, None, None)
-        after = self.launch_counts()
+        after = self.dev.launch_counts()
         launched = {k: after[k] - self._before.get(k, 0) for k in after}
         self.n_tries += 1
         self._raw = (prof, window_s, launched, self.waves)

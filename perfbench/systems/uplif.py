@@ -4,6 +4,10 @@ through the methods below, and opens its spans around each call into a
 layer."""
 from __future__ import annotations
 
+#: the program's top span inside each harness span (``perfharness/program.py``)
+PROGRAM_SPANS = {"uplif.lookup": "index.lookup",
+                 "uplif.insert": "index.insert"}
+
 
 def index_config(cfg: dict):
     """The port's ``UpLIFConfig`` for the configuration's index knobs."""

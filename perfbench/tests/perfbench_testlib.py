@@ -2,9 +2,12 @@
 to a size that a test can hold, run on the CPU."""
 from __future__ import annotations
 
+import json
 import sys
 import time
 from pathlib import Path
+
+import pytest
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -25,6 +28,26 @@ def small_waves(bench_dir: Path = BENCH_DIR):
 
 small_waves()
 SEED = 3_000_000_019          # above 2**31, as a run's seed may be
+
+
+def load_trace(name: str):
+    """``tests/traces/<name>.py``: the run a reader's case reads,
+    ``record()``, and its program's spans, ``play()``."""
+    path = BENCH_DIR / "tests" / "traces" / f"{name}.py"
+    if not path.is_file():
+        raise spec.SpecError(f"{path} is missing: no trace {name!r}")
+    return spec._module(path, "perfbench_trace")
+
+
+def reader_case(name: str) -> dict:
+    """``tests/cases/<name>.json``, the case of the reader
+    ``metrics/<name>.py``; the test fails naming the path where it is
+    missing."""
+    path = BENCH_DIR / "tests" / "cases" / f"{name}.json"
+    if not path.is_file():
+        pytest.fail(f"{path} is missing: the case of the reader "
+                    f"metrics/{name}.py")
+    return json.loads(path.read_text())
 
 
 def cell(name: str):

@@ -111,3 +111,61 @@ def test_every_kernel_module_names_its_entry():
         assert mod.NAME == name
         target = importlib.import_module(mod.ENTRY[0])
         assert callable(getattr(target, mod.ENTRY[1]))
+
+
+def test_k1_bytes_follow_the_interpolation_the_launch_asks_for():
+    """Under the float32 position bound the caller may still ask K1 for
+    float64 (``interp64``): the count is of what that launch reads."""
+    from repro_torch.kernels.spline_lookup import fused_locate_plain
+
+    k1 = spec.kernel_module("k1")
+    cap, span = 1 << 20, 1 << 40        # one segment over [0, 2^40)
+    model = (torch.tensor([0, 1, 1, 1], dtype=torch.int32),
+             torch.tensor([0, span]),
+             torch.tensor([0.0, cap - 1.0], dtype=torch.float64),
+             torch.tensor([40], dtype=torch.int32),
+             torch.arange(cap) * (span // cap))
+    kw = dict(n_table=4, n_knots=2, cap=cap, window=64, rs_iters=1)
+    kw64 = dict(kw, interp64=True)
+    q = torch.randint(0, span, (200_000,),
+                      generator=torch.Generator().manual_seed(0))
+    # the queries whose windows float32 and float64 place apart
+    q = q[fused_locate_plain(*model, q, **kw64)[1]
+          != fused_locate_plain(*model, q, **kw)[1]]
+    assert q.shape[0] > 0
+    args = model + (q,)
+    j, start = k1.plain(*args, **kw64)
+    pj, pstart = fused_locate_plain(*args, **kw64)
+    assert torch.equal(j, pj) and torch.equal(start, pstart)
+    arrays = dict(zip(("table", "spline_keys", "spline_pos", "shift",
+                       "slot_keys"), model))
+    reads = read_footprint(k1.plain, args, kw64, arrays)
+    assert k1.bytes_of(args, kw64) == q.shape[0] * (8 + 16) + reads
+    assert k1.bytes_of(args, kw64) != k1.bytes_of(args, kw)
+
+
+def test_the_probe_counts_k1_as_ops_calls_it(index):
+    """The probe stands in for K1's wrapper, which ``ops.fused_locate``
+    calls through its module with the interpolation it chose; the
+    wrapper's launches are still counted on the wrapper itself."""
+    from perfharness import probe
+    from repro_torch.kernels import build, ops, spline_lookup
+
+    ix, q = index
+    k1 = spec.kernel_module("k1")
+    args, kw = _k1_inputs(ix, q)
+    entry = spline_lookup.fused_locate
+    launches = entry.launches
+    out = {}
+    try:
+        with probe.observe({"k1": k1}, out):
+            assert spline_lookup.fused_locate is not entry
+            ops.fused_locate(*args, **kw)
+            build.count_launch(spline_lookup.fused_locate)
+        assert spline_lookup.fused_locate is entry
+        assert entry.launches == launches + 1
+    finally:
+        entry.launches = launches
+    chosen = dict(kw, interp64=not ops.locate_fusable(kw["cap"],
+                                                      kw["n_knots"]))
+    assert out == {"k1": [k1.bytes_of(args, chosen)]}

@@ -1,11 +1,20 @@
 """``perfharness/program.py``: the program's spans paired with the harness's
 and moved onto a profiled stretch's clock, on synthetic data."""
+import dataclasses
+import re
 import sys
 
 import pytest
-import perfbench_testlib  # noqa: F401 — the import paths
+import perfbench_testlib
 
 from perfharness import cell, program, spec, trace
+
+UPLIF = spec.system("uplif").PROGRAM_SPANS
+# the readers built on perfharness/program.py
+PROGRAM_READERS = sorted(
+    p.stem for p in (perfbench_testlib.BENCH_DIR / "metrics").glob("*.py")
+    if re.search(r"perfharness(\.program\b| import .*\bprogram\b)",
+                 p.read_text()))
 
 
 def _snap(calls):
@@ -33,7 +42,7 @@ def _run(spans, device=(), short=False):
     p = trace.Profile(window_s=0.1, waves=len(spans), device=list(device),
                       spans=spans, launched={}, short=short, tries=1)
     return cell.RunRecord(window_s=10.0, waves=4, spans={}, profile=p,
-                          kernel_bytes={})
+                          kernel_bytes={}, program_spans=UPLIF)
 
 
 HARNESS = [("index.lookup", 0.010, 0.030), ("gen", 0.030, 0.040),
@@ -120,6 +129,44 @@ def test_a_program_without_the_tracer_reads_as_nothing(monkeypatch):
     assert program.total(_run(HARNESS), "host_syncs") is None
 
 
+def test_other_threads_top_spans_are_read_on_the_stretchs_clock():
+    """Top spans of other names, as a worker thread opens them, are taken
+    where they ran while the final stretch did: moved by the first call's
+    offset, clipped to the stretch, with their children's counts."""
+    build = ("tuner.build", 6.5, 6.6, [])                 # before it
+    during = ("tuner.build", 6.98, 7.02, [
+        ("tuner.fit", 6.99, 7.01, {"rows": 5})])
+    overlaps_end = ("tuner.build", 7.06, 7.2, [])
+    after = ("tuner.build", 7.2, 7.3, [])
+    snap = _snap([build, during, _lookup(7.0), ("tuner.other", 7.03, 7.04,
+                                                []),
+                  _lookup(7.05), overlaps_end, after])
+    run = _run(HARNESS)
+    # the stretch's first call at 7.0 s runs from 0.010 s on its clock
+    got = program.top_spans(run, ["tuner.build"], snap)
+    assert [c.name for c in got] == ["tuner.build"] * 2
+    (top, fit), (late,) = got[0].spans, got[1].spans
+    assert top[1:] == pytest.approx((0.0, 0.030))
+    assert fit[1:] == pytest.approx((0.0, 0.020))
+    assert late[1:] == pytest.approx((0.070, 0.1))
+    assert got[0].counts == {"rows": 5} and got[1].counts == {}
+    # the seconds inside the stretch
+    assert got[0].durations["tuner.build"] == pytest.approx([0.030])
+    assert got[0].durations["tuner.fit"] == pytest.approx([0.020])
+    assert got[1].durations["tuner.build"] == pytest.approx([0.030])
+    assert program.top_spans(run, ["no.such"], snap) == []
+    # a build still open when the tracer is read runs to the stretch's end
+    i = [s[2] for s in snap["spans"]].index(int(7.06e9))
+    snap["spans"][i] = snap["spans"][i][:3] + (None, {})
+    late, = program.top_spans(run, ["tuner.build"], snap)[1].spans
+    assert late[1:] == pytest.approx((0.070, 0.1))
+    # where the calls read as nothing, so do these
+    for bad in (dataclasses.replace(run, program_spans={}),
+                _run([("index.insert", 0.010, 0.030), HARNESS[2]])):
+        assert program.calls(bad, snap) is None
+        assert program.top_spans(bad, ["tuner.build"], snap) is None
+
+
 HEAVY_EXPECTED = {
     "index.insert_place_ms_p50": 11.0,      # 10 and 12 ms
     "index.insert_merge_ms_p50": 5.0,       # 4 and 6 ms
@@ -128,10 +175,9 @@ HEAVY_EXPECTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(HEAVY_EXPECTED))
-def test_program_readers_on_a_read_heavy_trace(name):
-    """Two waves of a lookup and an insert, recorded by the tracer: the
-    readers of BENCHMARK.json take the insert's spans and counts."""
+def _read_heavy(read):
+    """``read`` over two waves of a lookup and an insert, recorded by the
+    tracer."""
     from program_trace import insert_call, lookup_call, play
     from repro_torch import tracing
 
@@ -144,9 +190,45 @@ def test_program_readers_on_a_read_heavy_trace(name):
             spans=[("index.lookup", 0.0, 0.036), ("index.insert", 0.036, 0.05),
                    ("index.lookup", 0.05, 0.086), ("index.insert", 0.086, 0.1)],
             launched={}, short=False, tries=1)
-        run = cell.RunRecord(window_s=10.0, waves=4, spans={}, profile=p,
-                             kernel_bytes={})
-        v = spec.metric_reader(name)(run)
+        return read(cell.RunRecord(window_s=10.0, waves=4, spans={},
+                                   profile=p, kernel_bytes={},
+                                   program_spans=UPLIF))
     finally:
         tracing.reset()
+
+
+@pytest.mark.parametrize("name", sorted(HEAVY_EXPECTED))
+def test_program_readers_on_a_read_heavy_trace(name):
+    """The readers of BENCHMARK.json take the insert's spans and counts,
+    paired by ``uplif``'s ``PROGRAM_SPANS``, and nothing without them."""
+    read = spec.metric_reader(name)
+    v, unmapped = _read_heavy(lambda run: (
+        read(run), read(dataclasses.replace(run, program_spans={}))))
     assert v == pytest.approx(HEAVY_EXPECTED[name], rel=1e-9)
+    assert unmapped is None
+
+
+@pytest.mark.parametrize("name", PROGRAM_READERS)
+def test_a_system_without_program_spans_reads_as_nothing(name):
+    """The run carries its system's ``PROGRAM_SPANS``. Over the trace of
+    its own case, each program reader reads the case's value with the
+    map the trace's record carries, and nothing from a system that
+    declares none."""
+    from repro_torch import tracing
+
+    case = perfbench_testlib.reader_case(name)
+    run = perfbench_testlib.load_trace(case["trace"])
+    read = spec.metric_reader(name)
+    tracing.reset()
+    try:
+        run.play()
+        rec = run.record()
+        mapped = read(rec)
+        unmapped = read(dataclasses.replace(rec, program_spans={}))
+    finally:
+        tracing.reset()
+    if case["value"] is None:
+        assert mapped is None
+    else:
+        assert mapped == pytest.approx(case["value"], rel=1e-9)
+    assert unmapped is None

@@ -39,9 +39,11 @@ def test_a_cell_mix_and_metric_added_as_files(copy):
     bench["workloads"].append({
         "name": "uplif-wikits-16m.write_heavy", "config": "uplif-wikits-16m",
         "traffic": "write_heavy", "chips": 1, "why": "50% writes"})
-    for m in bench["end_to_end"]:
-        if m["name"] == "ops_per_s":
-            m["workloads"].append("uplif-wikits-16m.write_heavy")
+    # a cell whose rate is steady adds the rate end to end, as an entry
+    bench["end_to_end"].append({
+        "name": "ops_per_s", "unit": "ops/s", "better": "higher",
+        "bound": 0.25, "source": "host_clock",
+        "workloads": ["uplif-wikits-16m.write_heavy"]})
     bench["per_layer"].append({
         "name": "index.insert_ms_p99", "unit": "ms", "better": "lower",
         "source": "program_span", "layer": "index shell and op suite",
@@ -139,6 +141,187 @@ def test_a_system_loop_and_cell_added_as_files(copy):
     spans = out["_record"].spans
     assert len(spans["system.build"]) == 1 and len(spans["loop.window"]) == 1
     assert spans["index.lookup"] and spans["index.insert"]
+
+
+RELAY_SYSTEM = """import threading
+from pathlib import Path
+
+from perfharness import spec
+from repro_torch import tracing
+
+PROGRAM_SPANS = {"relay.serve": "relay.wave"}
+
+
+def _side():
+    with tracing.span("relay.side"):
+        tracing.count("relay.side_waves")
+
+
+class Relay:
+    def __init__(self, inner, rec):
+        self.inner, self.rec = inner, rec
+
+    def wave(self, reads, ins, ins_vals):
+        with self.rec.span("relay.wave", sync=True):
+            with tracing.span("relay.serve"):
+                with tracing.span("relay.route"):
+                    tracing.count("relay.ops", len(reads) + len(ins))
+                side = threading.Thread(target=_side)
+                side.start()
+                side.join()
+                return self.inner.wave(reads, ins, ins_vals)
+
+    def contents(self):
+        return self.inner.contents()
+
+    def close(self):
+        self.inner.close()
+
+
+def build(cfg, keys, vals, device, rec):
+    uplif = spec.system("uplif", Path(__file__).resolve().parents[1])
+    return Relay(uplif.build(cfg, keys, vals, device, rec), rec)
+"""
+
+RELAY_READERS = {
+    "relay.route_ms_p50": """from perfharness.program import span_ms_p50
+
+
+def read(run):
+    return span_ms_p50(run, "relay.route")
+""",
+    "relay.side_per_wave": """from perfharness.program import top_spans
+
+
+def read(run):
+    side = top_spans(run, ["relay.side"])
+    if side is None or not run.profile.waves:
+        return None
+    n = sum(c.counts.get("relay.side_waves", 0) for c in side)
+    return n / run.profile.waves
+""",
+}
+
+RELAY_TRACE = """import threading
+
+from perfharness import cell, spec, trace
+from repro_torch import tracing
+
+# the tracer's clock, read as each span opens and closes: two waves, each
+# routed (3 ms, then 5 ms) and with a span on a second thread
+TICKS = [0.0, 0.001, 0.004, 0.010, 0.012, 0.040,
+         5.0, 5.001, 5.006, 5.010, 5.012, 5.040]
+
+
+def record():
+    p = trace.Profile(window_s=10.0, waves=2, device=[],
+                      spans=[("relay.wave", 0.0, 0.04),
+                             ("relay.wave", 5.0, 5.04)],
+                      launched={}, short=True, tries=1)
+    return cell.RunRecord(window_s=10.0, waves=2, spans={}, profile=p,
+                          kernel_bytes={},
+                          program_spans=spec.system("relay").PROGRAM_SPANS)
+
+
+def _side():
+    with tracing.span("relay.side"):
+        tracing.count("relay.side_waves")
+
+
+def play():
+    clock = iter(int(t * 1e9) for t in TICKS)
+    saved, tracing._clock = tracing._clock, clock.__next__
+    tracing.enable()
+    try:
+        for _ in range(2):
+            with tracing.span("relay.serve"):
+                with tracing.span("relay.route"):
+                    tracing.count("relay.ops", 256)
+                side = threading.Thread(target=_side)
+                side.start()
+                side.join()
+    finally:
+        tracing.disable()
+        tracing._clock = saved
+"""
+
+RELAY_CASES = {"relay.route_ms_p50": 4.0, "relay.side_per_wave": 1.0}
+RELAY_TEST = "test_a_system_with_its_own_program_spans_added_as_files"
+
+
+def _copy_tests(copy, *args):
+    """The copy's own tests, run from the copy in a process of its own,
+    the port on its path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider",
+         "--confcutdir", str(copy), *args], cwd=copy / "perfbench", env=env,
+        capture_output=True, text=True, timeout=300)
+
+
+def test_a_system_with_its_own_program_spans_added_as_files(copy):
+    """A system whose program opens top spans of its own names, and a span
+    on a second thread each wave, is read by two new readers, each with
+    its case and trace: files added, every file that was there unchanged,
+    and the copy's tests all pass."""
+    bench_dir = copy / "perfbench"
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*") if p.is_file()}
+    (bench_dir / "systems" / "relay.py").write_text(RELAY_SYSTEM)
+    (bench_dir / "tests" / "traces" / "relay_waves.py").write_text(
+        RELAY_TRACE)
+    name = _add_cell(copy, "relay")
+    bench = json.loads((copy / "BENCHMARK.json").read_text())
+    for metric, value in RELAY_CASES.items():
+        (bench_dir / "metrics" / f"{metric}.py").write_text(
+            RELAY_READERS[metric])
+        (bench_dir / "tests" / "cases" / f"{metric}.json").write_text(
+            json.dumps({"trace": "relay_waves", "value": value,
+                        "why": "two waves"}))
+        bench["per_layer"].append({
+            "name": metric, "unit": "ms" if metric.endswith("_ms_p50")
+            else "1/wave", "better": "lower", "source": "program_span",
+            "layer": "relay", "moves": "bytes_per_key", "workloads": [name]})
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    for p, data in before.items():
+        assert p.read_bytes() == data          # nothing there was edited
+    # every test of the copy but this one, which would copy it again; the
+    # port beside it, as in a checkout
+    (copy / "src").symlink_to(ROOT / "src")
+    p = _copy_tests(copy, "tests", "--deselect",
+                    f"tests/test_perfbench_spec.py::{RELAY_TEST}")
+    assert p.returncode == 0, p.stdout[-3000:]
+    for metric in RELAY_CASES:
+        for test in ("test_perfbench_readers.py::test_reader_on_a_full_trace",
+                     "test_perfbench_program.py::"
+                     "test_a_system_without_program_spans_reads_as_nothing"):
+            assert f"{test}[{metric}] PASSED" in p.stdout
+    # a traced run of the cell on the CPU, at a test's size
+    c = spec.find_cell(name, root=copy, bench_dir=bench_dir)
+    c.config = spec.override(c.config, perfbench_testlib.SMALL)
+    perfbench_testlib.small_waves(bench_dir)
+    from perfharness import cell
+    out = cell.run_cell(c, 23, 1.0, True, device="cpu")
+    assert out["correct"], out["check"]
+    metrics = {k: v["value"] for k, v in out["metrics"].items()}
+    # each route lies inside its wave's harness span
+    profile = out["_record"].profile
+    assert profile.waves > 0
+    longest = max(b - a for n, a, b in profile.spans if n == "relay.wave")
+    assert 0 < metrics["relay.route_ms_p50"] <= 1e3 * longest
+    assert metrics["relay.side_per_wave"] == 1.0
+
+
+def test_a_reader_without_its_case_fails_by_path(copy):
+    bench_dir = copy / "perfbench"
+    (bench_dir / "metrics" / "index.insert_ms_p99.py").write_text(
+        "from perfharness.readers import span_pct\n\n\n"
+        "def read(run):\n    return span_pct(run, 'index.insert', 99)\n")
+    p = _copy_tests(copy, "tests/test_perfbench_readers.py", "-k",
+                    "full_trace and insert_ms_p99")
+    missing = bench_dir / "tests" / "cases" / "index.insert_ms_p99.json"
+    assert p.returncode == 1, p.stdout[-3000:]
+    assert "1 failed" in p.stdout and f"{missing} is missing" in p.stdout
 
 
 @pytest.mark.parametrize("kind", ["systems", "loops"])
