@@ -325,6 +325,16 @@ Imports only the port (``src/repro_torch``) and runs:
                 the plain version's device and call ms, each call on a
                 fresh batch. ``run_window_insert(torch)`` runs the phase
                 alone.
+ 24. spline corridor — K8 at the cells' bulk load: 16M wikits keys at the
+                positions ``UpLIF``'s bulk load gives them (alpha 1.0,
+                d_max 32, W 64, max_error 24); the kernel pair's knots
+                against the host loop (``_greedy_spline_knots``) and the
+                plain version on the card, each bit for bit; then the pair's
+                device ms per call and per launch, the wrapper's call ms,
+                ``build_radix_spline``'s seconds on the card (copies in and
+                the host's radix table included), the plain version's and
+                the host loop's seconds, and the divisions the scans made.
+                ``run_spline_corridor(torch)`` runs the phase alone.
 
 Phases 13-15 come after the timing because phase 15 retrains the index
 that phase 12 times.
@@ -350,7 +360,12 @@ launch searches. For K6, bytes are lhs, the non-empty groups' rhs and out,
 and the operations 2 M K N over the bf16 tensor-core peak (989 TFLOP/s)
 or, in float32, which K6 computes without TF32, over 67 TFLOP/s. For K6w,
 bytes are the lhs and dout rows that lie in some group and the G K N
-output, and the operations 2 x rows x K x N over the same peaks.
+output, and the operations 2 x rows x K x N over the same peaks. For K8,
+bytes are the keys and positions in and the knots out, and the operations
+the float64 divisions the scans make (three a point inside an anchor's
+corridor, one at the point that leaves it), each ``K8_DIV_INSTR`` FP64
+instructions (its SASS) over the H100's 16.75e12 FP64 instructions a
+second (33.5 TFLOP/s, an FMA counted twice); the divisions bound it.
 """
 from __future__ import annotations
 
@@ -404,6 +419,14 @@ K7_WIDTHS = (4096, 512)     # the wave's width; the insert's padded width
 K7_ITERS = 100
 K7_PLAIN_ITERS = 10
 K7_SEED = 23
+K8_SOURCE = "src/repro_torch/kernels/csrc/spline_corridor.cu"
+# not a pallas_call: the host loop of the spline build
+K8_REPLACES = "src/repro/core/radix_spline.py:24"
+K8_KEYS = 16_000_000        # the cells' loaded keys
+K8_SEED = 24
+K8_ITERS = 10
+F64_INSTR_PER_S = 16.75e12  # the H100's FP64 rate, 33.5 TFLOP/s, in DFMAs
+K8_DIV_INSTR = 8            # its SASS: 7 DFMA and 1 DMUL after MUFU.RCP64H
 RANGE_BATCHES = 20          # range_query_batch calls per range phase
 RANGE_BATCH = 1024          # ranges per call (benchmarks/bench_range.py)
 RANGE_MAX_OUT = 512
@@ -5184,6 +5207,122 @@ def run_window_insert(torch):
     return head, launches
 
 
+def _k8_inputs(n: int, seed: int):
+    """``n`` sorted wikits keys and the slot positions ``UpLIF``'s bulk
+    load gives them with the default (the cells') index."""
+    from repro_torch.core import UpLIFConfig
+    from repro_torch.core.gmm import init_gmm_uniform
+    from repro_torch.core.nullifier import nullify
+    from repro_torch.data import make_dataset
+
+    keys = np.unique(make_dataset("wikits", n, seed))
+    cfg = UpLIFConfig()
+    gmm = init_gmm_uniform(float(keys[0]), float(keys[-1]),
+                           cfg.gmm_components)
+    res = nullify(keys, keys, gmm, alpha_target=cfg.alpha_target,
+                  d_max=cfg.d_max, tail_slack=max(64, cfg.window),
+                  align=cfg.window, device="cpu")
+    return keys, res.positions, cfg.max_error
+
+
+def run_spline_corridor(torch, n_keys: int = K8_KEYS, device="cuda"):
+    """Phase 24: K8 at the cells' bulk load — ``n_keys`` wikits keys at the
+    bulk load's positions. The kernel pair's knots must equal the host
+    loop's and the plain version's on the card; then the pair's device ms
+    per call (and of each launch), the wrapper's call ms between CUDA
+    events (its allocations, the count's read and the int64 copy
+    included), ``build_radix_spline``'s seconds on the card (the copies in
+    and the host's radix table included), the plain version's and the host
+    loop's seconds once, and the divisions the scans made. Returns the
+    timing and the phase's launches."""
+    from repro_torch.core.radix_spline import (
+        _DEF_WINDOW,
+        _greedy_spline_knots,
+        build_radix_spline,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.spline_corridor import (
+        next_knots_plain,
+        spline_corridor,
+        walk_chain,
+    )
+
+    keys, positions, max_error = _k8_inputs(n_keys, K8_SEED)
+    n = len(keys)
+    k = torch.as_tensor(keys, device=device)
+    p = torch.as_tensor(positions, device=device)
+    ops.reset_launch_counts()
+    got = spline_corridor(k, p, max_error, _DEF_WINDOW).cpu().numpy()
+    t0 = time.perf_counter()
+    nxt = next_knots_plain(k, p, max_error, _DEF_WINDOW)
+    plain = walk_chain(nxt, n).cpu().numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = _greedy_spline_knots(keys, positions, max_error)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(got, host),
+            "K8: the kernel pair's knots differ from the host loop's")
+    require(np.array_equal(plain, host),
+            "K8: the plain version's knots differ from the host loop's")
+    # each anchor's scan: three divisions a point inside its corridor, one
+    # at the point that leaves it (none where the window or the keys end)
+    i = torch.arange(n - 1, device=device)
+    inside = (nxt - i).sum().item()
+    left = (nxt - i < torch.clamp(n - 1 - i, max=_DEF_WINDOW - 1)).sum()
+    divisions = 3 * inside + left.item()
+    del nxt, i
+
+    def kern():
+        spline_corridor(k, p, max_error, _DEF_WINDOW)
+
+    kern()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(K8_ITERS):
+            kern()
+
+    dev = _device_events(torch, body)
+    if dev is None:
+        print("K8 timing: the profiler saw no device event; timed between "
+              "CUDA events", flush=True)
+        per_launch = {}
+        ms = call_ms(torch, kern, K8_ITERS)
+    else:
+        per_launch = {
+            name: _per_call_ms([e for e in dev if name in e.name], K8_ITERS)
+            for name in ("spline_corridor_next", "spline_corridor_chain")}
+        ms = sum(per_launch.values())
+    builds = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_radix_spline(keys, positions, max_error=max_error,
+                           device=device)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = 16 * n + 4 * len(host)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_div = divisions * K8_DIV_INSTR / F64_INSTR_PER_S * 1e3
+    timing = dict(
+        ms=ms, per_launch_ms=per_launch, call_ms=call_ms(torch, kern,
+                                                         K8_ITERS),
+        plain_ms=plain_ms, host_ms=host_ms, build_ms=builds,
+        library_ms=None, bytes=n_bytes,
+        bound=(t_div, "fp64 division") if t_div >= t_bytes
+        else (t_bytes, "bytes"),
+        shape=dict(keys=n, knots=len(host), max_error=max_error,
+                   window=_DEF_WINDOW, divisions=divisions,
+                   points_a_corridor=inside / (n - 1)),
+    )
+    launches = ops.launch_counts()
+    print("K8 timing " + json.dumps(dict(timing, card=card_line())),
+          flush=True)
+    del k, p
+    torch.cuda.empty_cache()
+    return timing, launches
+
+
 def main() -> int:
     # phase 19d's deterministic resume needs cuBLAS's fixed workspace
     # (the H100's default size), set before the first cuBLAS handle
@@ -5337,6 +5476,8 @@ def main() -> int:
     phase_done("22 gateway passthrough")
     timing["window_insert"], k7_launches = run_window_insert(torch)
     phase_done("23 window insert")
+    timing["spline_corridor"], k8_launches = run_spline_corridor(torch)
+    phase_done("24 spline corridor")
     timing["ragged_dot"] = k6_timing
     timing["ragged_dot_wgrad"] = k6w_timing
     print(f"K3 timing: N={timing['gmm_estep']['n']} K="
@@ -5352,6 +5493,8 @@ def main() -> int:
         "ragged_dot_wgrad": (K6W_SOURCE, K6W_REPLACES, k6w_err),
         # byte for byte, or run_window_insert raises
         "window_insert": (K7_SOURCE, K7_REPLACES, 0),
+        # knot for knot, or run_spline_corridor raises
+        "spline_corridor": (K8_SOURCE, K8_REPLACES, 0),
     }
     paths = {"uplif": launches, "router": r_launches,
              "uplif_range": range_launches, "router_range": rr_launches,
@@ -5363,7 +5506,7 @@ def main() -> int:
              "lm_serve": lm_launches, **moe_launches, **rec_launches,
              **train_launches, **launch_launches,
              "bmat_types": bmat_launches, **pass_launches,
-             "window_insert": k7_launches}
+             "window_insert": k7_launches, "spline_corridor": k8_launches}
     kernels = []
     for name, t in timing.items():
         source, replaces, err = meta[name]
@@ -5379,7 +5522,8 @@ def main() -> int:
             **{k: t[k] for k in ("warm_ms", "library_warm_ms", "cold_ms",
                                  "library_cold_ms", "library_error", "shape",
                                  "path", "kernel_paths", "variants",
-                                 "per_launch_ms", "plain_call_ms")
+                                 "per_launch_ms", "plain_call_ms",
+                                 "host_ms", "build_ms")
                if k in t},
         })
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

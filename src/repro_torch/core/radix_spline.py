@@ -1,11 +1,14 @@
 """RadixSpline base model (port of ``repro/core/radix_spline.py``).
 
-The build is a host-side numpy greedy spline corridor over the sorted
-(key, position) pairs; prediction is a batched torch program: radix-table
-prefix lookup, bounded branchless binary search over the knots, and linear
-interpolation in float64 (the ``"spline"`` locate strategy). The fused
-kernel in ``repro_torch/kernels/spline_lookup.py`` does the same search
-with float32 interpolation.
+The build is a greedy spline corridor over the sorted (key, position)
+pairs: on a CUDA device K8 (``repro_torch/kernels/spline_corridor.py``)
+finds the knots, elsewhere the host numpy loop of ``_greedy_spline_knots``,
+which K8 is held to knot for knot; the radix table over the knots is built
+with numpy on the host either way. Prediction is a batched torch program:
+radix-table prefix lookup, bounded branchless binary search over the knots,
+and linear interpolation in float64 (the ``"spline"`` locate strategy).
+The fused kernel in ``repro_torch/kernels/spline_lookup.py`` does the same
+search with float32 interpolation.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import RadixSplineModel, RSStatic
+from repro_torch.kernels.ops import native_kernels
+from repro_torch.kernels.spline_corridor import spline_corridor
 
 _DEF_WINDOW = 8192  # max spline-segment span; caps corridor scan cost at O(N)
 
@@ -70,8 +75,8 @@ def build_radix_spline(
     max_error: int = 32,
     device,
 ) -> Tuple[RadixSplineModel, RSStatic]:
-    """Build the model mapping sorted int64 ``keys`` -> ``positions`` on the
-    host and place its arrays on ``device``."""
+    """Build the model mapping sorted int64 ``keys`` -> ``positions`` and
+    place its arrays on ``device``; on a CUDA device K8 finds the knots."""
     keys = np.asarray(keys, dtype=np.int64)
     positions = np.asarray(positions, dtype=np.int64)
     if keys.ndim != 1 or keys.shape != positions.shape:
@@ -81,7 +86,14 @@ def build_radix_spline(
     if not np.all(keys >= 0):
         raise ValueError("key domain is non-negative int64")
 
-    knot_idx = _greedy_spline_knots(keys, positions, max_error)
+    if native_kernels(device):
+        knot_idx = spline_corridor(
+            torch.as_tensor(keys, device=device),
+            torch.as_tensor(positions, device=device),
+            max_error, _DEF_WINDOW,
+        ).cpu().numpy()
+    else:
+        knot_idx = _greedy_spline_knots(keys, positions, max_error)
     sk = keys[knot_idx]
     sp = positions[knot_idx].astype(np.float64)
     n_spline = len(sk)

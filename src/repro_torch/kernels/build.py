@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_locate.cu", "bmat_rank.cu", "gmm_estep.cu",
            "spline_lookup.cu", "tile_search.cu", "ragged_dot.cu",
-           "ragged_dot_wgrad.cu", "window_insert.cu")
+           "ragged_dot_wgrad.cu", "window_insert.cu", "spline_corridor.cu")
 HEADERS = ("key_delta.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -72,6 +72,8 @@ SIGNATURES = {
     # failed_span, n_placed, min_span (both or neither null), n, cap,
     # n_rows, window, movement_k, stream
     "window_insert_apply_launch": [_P] * 14 + [_I, _LL, _LL, _I, _I, _P],
+    # keys, positions, nxt, knots, count, n, max_error, window, stream
+    "spline_corridor_launch": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import bmat_rank as _rank
 from repro_torch.kernels import gmm_estep as _estep
 from repro_torch.kernels import ragged_dot as _ragged
+from repro_torch.kernels import spline_corridor as _corridor
 from repro_torch.kernels import spline_lookup as _locate
 from repro_torch.kernels import tile_search as _tiles
 from repro_torch.kernels import window_insert as _window
@@ -228,6 +229,7 @@ def launch_counts() -> dict:
         "ragged_dot": _ragged.ragged_dot.launches,
         "ragged_dot_wgrad": _ragged.ragged_dot_wgrad.launches,
         "window_insert": _window.window_insert.launches,
+        "spline_corridor": _corridor.spline_corridor.launches,
     }
 
 
@@ -240,6 +242,7 @@ def reset_launch_counts() -> None:
     _ragged.ragged_dot.launches = 0
     _ragged.ragged_dot_wgrad.launches = 0
     _window.window_insert.launches = 0
+    _corridor.spline_corridor.launches = 0
     for wrapper in (_ragged.ragged_dot, _ragged.ragged_dot_wgrad):
         for p in wrapper.launches_by_path:
             wrapper.launches_by_path[p] = 0

@@ -416,7 +416,8 @@ def test_guards():
     assert set(ops.launch_counts()) == {"fused_locate", "bmat_rank",
                                         "gmm_estep", "tile_search",
                                         "spline_lookup", "ragged_dot",
-                                        "ragged_dot_wgrad", "window_insert"}
+                                        "ragged_dot_wgrad", "window_insert",
+                                        "spline_corridor"}
 
 
 # ---------------------------------------------------------------------------
